@@ -1,0 +1,17 @@
+from vinet_tpu_torch.models.decoder import DECODER_PLANS, Decoder, DecoderPlan, decoder_plan
+from vinet_tpu_torch.models.inference import cast_floating, fold_batchnorms
+from vinet_tpu_torch.models.s3d import MIXED_PLAN, InceptionBlock, S3DBackbone
+from vinet_tpu_torch.models.vinet import ViNet
+
+__all__ = [
+    "DECODER_PLANS",
+    "Decoder",
+    "DecoderPlan",
+    "decoder_plan",
+    "cast_floating",
+    "fold_batchnorms",
+    "MIXED_PLAN",
+    "InceptionBlock",
+    "S3DBackbone",
+    "ViNet",
+]

@@ -1,0 +1,67 @@
+"""S3D building blocks with the reference's attribute names.
+
+``BasicConv3d`` (conv -> bn -> relu) and ``SepConv3d`` (spatial conv_s ->
+bn_s -> relu, temporal conv_t -> bn_t -> relu), BatchNorm at eps 1e-3 and
+momentum 0.001, as in ``vinet_tpu/models/layers.py::basic_conv3d`` and
+``sep_conv3d``. ``fold_bn`` absorbs each BatchNorm into its conv for
+inference: the conv gains a bias and the BatchNorm becomes ``nn.Identity``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vinet_tpu_torch.ops.norm import BN_EPS, fold_bn_into_conv
+
+BN_MOMENTUM = 0.001
+
+
+def _bn(ch: int) -> nn.BatchNorm3d:
+    return nn.BatchNorm3d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def _fold(conv: nn.Conv3d, bn: nn.Module) -> nn.Module:
+    """Fold bn into conv in place; return the module that replaces bn."""
+    if isinstance(bn, nn.Identity):
+        return bn
+    w, b = fold_bn_into_conv(conv.weight, conv.bias, bn.weight, bn.bias,
+                             bn.running_mean, bn.running_var, eps=bn.eps)
+    with torch.no_grad():
+        conv.weight.copy_(w)
+    conv.bias = nn.Parameter(b.to(conv.weight.dtype))
+    return nn.Identity()
+
+
+class BasicConv3d(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, kernel, stride=1, padding=0):
+        super().__init__()
+        self.conv = nn.Conv3d(in_ch, out_ch, kernel, stride, padding, bias=False)
+        self.bn = _bn(out_ch)
+
+    def forward(self, x):
+        return torch.relu(self.bn(self.conv(x)))
+
+    def fold_bn(self):
+        self.bn = _fold(self.conv, self.bn)
+
+
+class SepConv3d(nn.Module):
+    """Factorised 3-D conv: (1,k,k) spatial then (k,1,1) temporal."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.conv_s = nn.Conv3d(in_ch, out_ch, (1, kernel, kernel), (1, stride, stride),
+                                (0, padding, padding), bias=False)
+        self.bn_s = _bn(out_ch)
+        self.conv_t = nn.Conv3d(out_ch, out_ch, (kernel, 1, 1), (stride, 1, 1),
+                                (padding, 0, 0), bias=False)
+        self.bn_t = _bn(out_ch)
+
+    def forward(self, x):
+        x = torch.relu(self.bn_s(self.conv_s(x)))
+        return torch.relu(self.bn_t(self.conv_t(x)))
+
+    def fold_bn(self):
+        self.bn_s = _fold(self.conv_s, self.bn_s)
+        self.bn_t = _fold(self.conv_t, self.bn_t)
