@@ -6,18 +6,25 @@ and exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails. Phases, each printing one JSON line:
 
 1. card: name and power limit from nvidia-smi;
-2. build: every hand-written kernel of the main path, from the sources in the
-   checkout (``vinet_tpu_torch/csrc``);
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   main path's shape and at other shapes, and its time beside its plain
-   version's, the library yardstick's and the card's bound;
+2. build: every hand-written kernel, from the sources in the checkout
+   (``vinet_tpu_torch/csrc``), one ``nvcc`` per source, all at once;
+3. kernel_check / kernel_time: each kernel against its plain PyTorch version
+   on the card at its paths' shapes and at ragged ones (int8 exactly, bf16 and
+   f32 within 1e-5), and its time beside its plain version's, the library
+   call's and the card's bound;
 4. model: the full-width ViNet(3, 32) with the committed fixture weights
    (``artifacts/streamft_fixture.npz``), BatchNorm folded, on a window batch
    of 16 clips of 32 x 224 x 384 in bf16, against f32 on the card, and f32 on
    the card against the CPU at a reduced input, its bf16 clips/s, and a
    profile of one bf16 window batch (FLOP count, device time by kernel);
-5. cli (the main path): ``vinet_tpu_torch.cli.generate_result`` end to end on
-   a synthetic DHF1K-layout directory; the kernels' launch counts are set to 0
+5. int8_model (the int8 path): the same model and window batch through
+   ``make_inference_fn(dtype="int8")``, calibrated on the batch's first 2
+   clips in f32; its clips/s and peak memory, int8 against bf16 on the card,
+   and int8 on the card against int8 on the CPU (the same scales) at a
+   reduced input. Launch counts are set to 0 just before one forward and read
+   just after;
+6. cli (the bf16 main path): ``vinet_tpu_torch.cli.generate_result`` end to
+   end on a synthetic DHF1K-layout directory; the launch counts are set to 0
    just before and read just after.
 
 Then one line lists every kernel with its numbers, and the last line is
@@ -26,6 +33,7 @@ Then one line lists every kernel with its numbers, and the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import json
 import os
@@ -35,16 +43,28 @@ import tempfile
 import time
 
 FIXTURE = os.path.join("artifacts", "streamft_fixture.npz")
+KERNELS = ("saliency_head", "int8_mm", "tconv")
 # H100 SXM data sheet: HBM rate, and dense peaks by input type (f32 on the
-# CUDA cores; bf16 on the tensor cores)
+# CUDA cores; bf16 and int8 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12, "torch.int8": 1979e12}
 KERNEL_TOL = 1e-5  # kernel vs plain: same inputs, both accumulate in f32
+# (relative to the largest output for the GEMM kernels; int8 must be exact)
 CPU_TOL = 2e-3  # card f32 vs CPU f32: the port's parity anchor against JAX
 # bf16 vs f32 on the card: bf16 keeps 8 significant bits (relative rounding
 # 2^-9) through some 60 convolutions, whose errors add up to about 1e-2 of a
 # logit; the sigmoid's slope is at most 1/4
 BF16_MAX_TOL, BF16_MEAN_TOL = 5e-2, 5e-3
+# int8 vs bf16 maps on the card: every conv input and weight is rounded to
+# 1/127 of its range (about 2^-7, bf16 keeps 2^-9), so the maps move more
+# than bf16's own; measured on an NVIDIA H100 80GB HBM3 at 700 W: max 0.057,
+# mean 0.0056, CC >= 0.985
+INT8_MAX_TOL, INT8_MEAN_TOL, INT8_CC_MIN = 0.1, 0.01, 0.97
+# int8 on the card vs int8 on the CPU with the same scales: the int32 sums are
+# exact on both, so only bf16 rounding of the unquantized ops differs, and now
+# and then flips an int8 level; measured on the same card: max 0.0034, mean
+# 2.3e-6
+INT8_CPU_MAX_TOL, INT8_CPU_MEAN_TOL = 0.01, 1e-5
 
 
 def emit(obj) -> None:
@@ -83,12 +103,23 @@ def phase_build() -> None:
     from vinet_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    so = build.build("saliency_head")
-    log = so.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines() if "Used" in ln] \
-        if log.exists() else []
-    emit({"phase": "build", "kernels": ["saliency_head"], "seconds": time.perf_counter() - t0,
-          "library": str(so.relative_to(os.getcwd())), "ptxas": ptxas})
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc each
+        libs = list(pool.map(build.build, KERNELS))
+    ptxas = {}
+    for name, so in zip(KERNELS, libs):
+        log = so.with_suffix(".log")
+        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines() if "Used" in ln] \
+            if log.exists() else []
+    emit({"phase": "build", "kernels": list(KERNELS), "seconds": time.perf_counter() - t0,
+          "libraries": [str(so.relative_to(os.getcwd())) for so in libs], "ptxas": ptxas})
+
+
+def bound(bytes_moved: int, ops: int, dtype) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate of dtype."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[str(dtype)] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def _head_inputs(torch, b, kt, h, w, bias, dtype, seed):
@@ -102,7 +133,7 @@ def _head_inputs(torch, b, kt, h, w, bias, dtype, seed):
     return z, w6, b6, w7, b7
 
 
-def phase_kernels(torch) -> dict:
+def phase_head_kernel(torch) -> dict:
     """The head kernel against its plain version; times at the main shape."""
     import torch.nn.functional as F
 
@@ -147,28 +178,144 @@ def phase_kernels(torch) -> dict:
     n_pix = b * h * w
     bytes_moved = z.numel() * z.element_size() + n_pix * 4 + 4 * (w6.numel() + w7.numel() + 1)
     ops = n_pix * (2 * 32 * 32 * kt + 2 * 32)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S[str(z.dtype)] * 1e3
+    bound_ms, bound_by = bound(bytes_moved, ops, z.dtype)
     rec = {"name": "saliency_head", "route": "cuda",
            "source": "vinet_tpu_torch/csrc/saliency_head.cu",
            "replaces": "vinet_tpu/ops/pallas_head.py:54",
            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
     emit({"phase": "kernel_time", "kernel": "saliency_head", "shape": list(z.shape),
           "dtype": str(z.dtype), "bytes": bytes_moved, "flop": ops,
-          "bytes_ms": bytes_ms, "ops_ms": ops_ms, "kernel_ms": kernel_ms,
-          "bound_us": rec["bound_ms"] * 1e3,
           "f32_cuda_core_ms": ops / PEAK_OPS_PER_S["torch.float32"] * 1e3,
           **{k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
     return rec
 
 
+def _gemm_operands(torch, dtype, shapes, seed):
+    """Seeded operands on the card: int8 in [-127, 127], bf16 standard normal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype == torch.int8:
+        return [torch.randint(-127, 128, s, generator=g, device="cuda", dtype=torch.int8)
+                for s in shapes]
+    return [torch.randn(s, generator=g, device="cuda").to(dtype) for s in shapes]
+
+
+def _gemm_err(torch, got, want, dtype) -> float:
+    """int8: max|err| (must be 0); bf16: max|err| over the largest output."""
+    err = float((got.double() - want.double()).abs().max())
+    return err if dtype == torch.int8 else err / max(float(want.abs().max()), 1e-30)
+
+
+# (case, dtype, shapes, stride): int8_mm takes a (M, K) @ b (K, N); tconv the
+# slab x (T_pad, M, C) and w (kt, C, CO). The first case of each is the
+# experiment's shape (scripts/exp_int8_mxu_r5.py stages AB and C).
+def _gemm_cases(torch):
+    i8, bf = torch.int8, torch.bfloat16
+    stem = [(38, 344064, 64), (7, 64, 64)]  # B 16, T 32 + 2*3, 112 x 192, C 64
+    return {
+        "int8_mm": [
+            ("experiment_4096x1024x1024", i8, [(4096, 1024), (1024, 1024)], None),
+            ("experiment_4096x1024x1024", bf, [(4096, 1024), (1024, 1024)], None),
+            ("ragged_1000x333x77", i8, [(1000, 333), (333, 77)], None),
+            ("ragged_1000x333x77", bf, [(1000, 333), (333, 77)], None),
+            ("ragged_129x1x130", i8, [(129, 1), (1, 130)], None),
+            # Mixed-4b branch0 1x1x1 at batch 16: (16, 480, 8, 14, 24) -> 192
+            ("mixed4b_1x1x1", i8, [(43008, 480), (480, 192)], None),
+            # decoder conv4 (5,3,3) s5 im2col at batch 16: (16, 192, 20, 56, 96) -> 64
+            ("decoder_conv4_im2col", i8, [(344064, 8640), (8640, 64)], None),
+        ],
+        "tconv": [
+            ("experiment_stem_7x1x1_s2", i8, stem, 2),
+            ("experiment_stem_7x1x1_s2", bf, stem, 2),
+            ("ragged_9x1000x20_co37_s2", i8, [(9, 1000, 20), (3, 20, 37)], 2),
+            ("ragged_9x1000x20_co37_s2", bf, [(9, 1000, 20), (3, 20, 37)], 2),
+            # Mixed-5c branch1 conv_t (3,1,1) p1 at batch 16: (16, 384, 4, 7, 12)
+            ("mixed5c_conv_t_384", i8, [(6, 5376, 384), (3, 384, 384)], 1),
+        ],
+    }
+
+
+def phase_gemm_kernels(torch) -> dict:
+    """int8_mm and tconv against their plain versions on every case; times of
+    kernel, plain version and library call at the experiment's shapes, in
+    int8 and bf16. Returns the kernels-line rows (int8, the model's path)."""
+    import torch.nn.functional as F
+
+    from vinet_tpu_torch.ops import int8_mm, tconv
+
+    mods = {"int8_mm": (int8_mm.int8_mm_cuda, int8_mm.int8_mm_plain),
+            "tconv": (tconv.tconv_cuda, tconv.tconv_plain)}
+    rows = {}
+    for name, cases in _gemm_cases(torch).items():
+        cuda_fn, plain_fn = mods[name]
+        for i, (case, dtype, shapes, stride) in enumerate(cases):
+            args = _gemm_operands(torch, dtype, shapes, seed=i)
+            if stride is not None:
+                args.append(stride)
+            got = cuda_fn(*args)
+            want = plain_fn(*args)
+            torch.cuda.synchronize()
+            err = _gemm_err(torch, got, want, dtype)
+            tol = 0.0 if dtype == torch.int8 else KERNEL_TOL
+            emit({"phase": "kernel_check", "kernel": name, "case": case, "dtype": str(dtype),
+                  "shapes": shapes, "stride": stride,
+                  "max_abs_err" if dtype == torch.int8 else "max_rel_err": err, "tol": tol})
+            check(got.shape == want.shape and err <= tol, f"{name} {case} {dtype}: err {err}")
+            del got, want
+            if not case.startswith("experiment"):
+                continue
+            iters = 20 if name == "int8_mm" else 5
+            kernel_ms = cuda_ms(torch, lambda: cuda_fn(*args), iters)
+            plain_ms = cuda_ms(torch, lambda: plain_fn(*args), iters)
+            if name == "int8_mm":
+                a, b = args
+                m, k = a.shape
+                n = b.shape[1]
+                ops = 2 * m * k * n
+                out_bytes = m * n * 4
+                lib = (lambda: torch._int_mm(a, b)) if dtype == torch.int8 else \
+                    (lambda: torch.matmul(a, b))
+                library = "torch._int_mm" if dtype == torch.int8 else "torch.matmul"
+            else:
+                x, w, st = args
+                kt, c, co = w.shape
+                t_out = (x.shape[0] - kt) // st + 1
+                ops = 2 * t_out * x.shape[1] * kt * c * co
+                out_bytes = t_out * x.shape[1] * co * 4
+                # stage C's geometry NDHWC (16, 32, 112, 192, 64), as cuDNN's
+                # channels-last conv3d in bf16 (there is no int8 conv3d)
+                xc = torch.randn((16, 64, 32, 112, 192), device="cuda", dtype=torch.bfloat16)
+                xc = xc.contiguous(memory_format=torch.channels_last_3d)
+                wc = w.to(torch.bfloat16).permute(2, 1, 0)[..., None, None].contiguous()
+                lib = lambda: F.conv3d(xc, wc, stride=(st, 1, 1), padding=((kt - 1) // 2, 0, 0))
+                library = "F.conv3d bf16 channels_last_3d"
+            library_ms = cuda_ms(torch, lib, iters)
+            in_bytes = sum(t.numel() * t.element_size() for t in args[:2])
+            bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype)
+            emit({"phase": "kernel_time", "kernel": name, "dtype": str(dtype), "case": case,
+                  "bytes": in_bytes + out_bytes, "ops": ops, "ms": kernel_ms,
+                  "plain_ms": plain_ms, "library": library, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "achieved_tops": ops / kernel_ms / 1e9})
+            if dtype == torch.int8:
+                rows[name] = {
+                    "name": name, "route": "cuda", "source": f"vinet_tpu_torch/csrc/{name}.cu",
+                    "replaces": {"int8_mm": "scripts/exp_int8_mxu_r5.py:64",
+                                 "tconv": "scripts/exp_int8_mxu_r5.py:154"}[name],
+                    "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            del args
+            torch.cuda.empty_cache()
+    return rows
+
+
+
 def profile_window_batch(torch, model, x) -> dict:
-    """The model's FLOP count (PyTorch's operators; the head kernel's 4,160
-    FLOP a pixel are not in it) and where the device time of one window batch
-    goes, by kernel, from torch.profiler."""
+    """The model's FLOP count (PyTorch's operators; the hand-written kernels'
+    operations are not in it) and where the device time of one window batch
+    goes, by kernel, from torch.profiler. ``kernel_ms`` sums the device time
+    of each hand-written kernel (int8_mm's and tconv's instances of the
+    shared GEMM core by their A loaders, RowMajorA and SlabA)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
@@ -188,7 +335,9 @@ def profile_window_batch(torch, model, x) -> dict:
     return {"flop_per_clip": flops.get_total_flops() / x.shape[0],
             "profiled_wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
-            "head_ms": sum(ms for k, ms, _ in kernels if "saliency_head" in k),
+            "kernel_ms": {name: sum(ms for k, ms, _ in kernels if marker in k)
+                          for name, marker in (("saliency_head", "saliency_head"),
+                                               ("int8_mm", "RowMajorA"), ("tconv", "SlabA"))},
             "top_kernels": [[k[:80], ms, n] for k, ms, n in kernels[:10]]}
 
 
@@ -251,6 +400,103 @@ def phase_model(torch) -> None:
     check(head.launches > launches0, "the model's head did not launch the kernel")
 
 
+def _launch_counts() -> dict:
+    from vinet_tpu_torch.ops import int8_mm, saliency_head, tconv
+
+    return {"saliency_head": saliency_head.launches, "int8_mm": int8_mm.launches,
+            "tconv": tconv.launches}
+
+
+def _reset_launch_counts() -> None:
+    from vinet_tpu_torch.ops import int8_mm, saliency_head, tconv
+
+    saliency_head.launches = int8_mm.launches = tconv.launches = 0
+
+
+def _map_cc(torch, a, b) -> tuple:
+    """Pearson CC of each pair of maps (the saliency CC metric): (mean, min)."""
+    a = a.flatten(1).double()
+    b = b.flatten(1).double()
+    a = a - a.mean(dim=1, keepdim=True)
+    b = b - b.mean(dim=1, keepdim=True)
+    cc = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
+    return float(cc.mean()), float(cc.min())
+
+
+def phase_int8_model(torch) -> dict:
+    """The int8 path: ViNet(3, 32) with the fixture weights through
+    make_inference_fn(dtype="int8") on the bf16 window batch. Returns the
+    launch counts of one forward, taken with the counts set to 0 before it."""
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+    from vinet_tpu_torch.io.weights import load_weights
+    from vinet_tpu_torch.models import ViNet
+    from vinet_tpu_torch.models.inference import make_inference_fn
+
+    model = ViNet(3, 32)
+    model.load_state_dict(load_weights(FIXTURE), strict=True)
+    g = torch.Generator(device="cuda").manual_seed(0)  # the model phase's window batch
+    x = device_preprocess(torch.randint(0, 256, (16, 32, 224, 384, 3), generator=g,
+                                        device="cuda", dtype=torch.uint8))
+    small = device_preprocess(torch.randint(0, 256, (1, 32, 128, 192, 3), generator=g,
+                                            device="cuda", dtype=torch.uint8))
+    t0 = time.perf_counter()
+    fn16, _ = make_inference_fn(copy.deepcopy(model), dtype="bfloat16", device="cuda")
+    fn8, model8 = make_inference_fn(model, dtype="int8", calib_clips=x[:2], device="cuda")
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    n_quant = sum(type(m).__name__ == "QuantConv3d" for m in model8.modules())
+
+    out16 = fn16(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    out8 = fn8(x)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(out8.shape == (16, 224, 384) and bool(torch.isfinite(out8).all())
+          and float(out8.min()) >= 0 and float(out8.max()) <= 1, "int8 model output")
+    d = (out8 - out16).abs()
+    max_err, mean_err = float(d.max()), float(d.mean())
+    cc_mean, cc_min = _map_cc(torch, out8, out16)
+
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn8(x)
+    torch.cuda.synchronize()
+    clips_per_s = iters * x.shape[0] / (time.perf_counter() - t0)
+    profile = profile_window_batch(torch, fn8, x)
+    profile.pop("flop_per_clip")  # the int8 products are not PyTorch operators
+    emit({"phase": "int8_profile", "input": list(x.shape), **profile})
+
+    # the same calibrated model on the CPU (plain routes), at a reduced input
+    on_card = fn8(small).cpu()
+    with torch.inference_mode():
+        on_cpu = copy.deepcopy(model8).cpu()(small.cpu().to(torch.bfloat16)).float()
+    dc = (on_card - on_cpu).abs()
+    cpu_max, cpu_mean = float(dc.max()), float(dc.mean())
+    emit({"phase": "int8_model", "config": "ViNet(3,32) fixture weights, BN folded, int8",
+          "input": list(x.shape), "calibration": "first 2 clips of the batch, f32",
+          "quantized_convs": n_quant, "prepare_s": prepare_s, "int8_clips_per_s": clips_per_s,
+          "peak_mem_gb": peak_gb, "launches": launches,
+          "int8_vs_bf16_max_abs_err": max_err, "int8_vs_bf16_mean_abs_err": mean_err,
+          "int8_vs_bf16_cc_mean": cc_mean, "int8_vs_bf16_cc_min": cc_min,
+          "int8_vs_bf16_tol": [INT8_MAX_TOL, INT8_MEAN_TOL, INT8_CC_MIN],
+          "card_int8_vs_cpu_int8_max_abs_err": cpu_max,
+          "card_int8_vs_cpu_int8_mean_abs_err": cpu_mean, "cpu_input": list(small.shape),
+          "cpu_tol": [INT8_CPU_MAX_TOL, INT8_CPU_MEAN_TOL]})
+    check(n_quant == 81, f"{n_quant} quantized convs, expected 81")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the int8 path")
+    check(max_err <= INT8_MAX_TOL and mean_err <= INT8_MEAN_TOL and cc_min >= INT8_CC_MIN,
+          f"int8 vs bf16: max {max_err}, mean {mean_err}, cc min {cc_min}")
+    check(cpu_max <= INT8_CPU_MAX_TOL and cpu_mean <= INT8_CPU_MEAN_TOL,
+          f"card int8 vs CPU int8: max {cpu_max}, mean {cpu_mean}")
+    return launches
+
+
+
 def _write_videos(root: str, n_videos: int, n_frames: int, size: tuple) -> None:
     import numpy as np
     from PIL import Image
@@ -275,19 +521,18 @@ def phase_cli(torch) -> dict:
     from PIL import Image
 
     from vinet_tpu_torch.cli.generate_result import main as generate_main
-    from vinet_tpu_torch.ops import saliency_head as head
 
     n_videos, n_frames, size = 2, 80, (360, 640)
     with tempfile.TemporaryDirectory() as tmp:
         data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
         _write_videos(data, n_videos, n_frames, size)
         torch.cuda.synchronize()
-        head.launches = 0
+        _reset_launch_counts()
         t0 = time.perf_counter()
         rc = generate_main(["--path_indata", data, "--save_path", out,
                             "--file_weight", FIXTURE, "--device", "cuda"])
         seconds = time.perf_counter() - t0
-        launches = {"saliency_head": head.launches}
+        launches = _launch_counts()
         check(rc == 0, f"generate_result returned {rc}")
         for v in range(n_videos):
             name = "%03d" % (v + 1)
@@ -301,8 +546,7 @@ def phase_cli(torch) -> dict:
     emit({"phase": "cli", "videos": n_videos, "frames": n_frames, "frame_size": list(size),
           "maps": n_maps, "window_batches": n_videos * -(-n_frames // 16),
           "seconds": seconds, "maps_per_s": n_maps / seconds, "launches": launches})
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+    check(launches["saliency_head"] > 0, "the head kernel was not launched on the main path")
     return launches
 
 
@@ -319,11 +563,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_card()
     phase_build()
-    kernel = phase_kernels(torch)
+    rows = {"saliency_head": phase_head_kernel(torch), **phase_gemm_kernels(torch)}
+    torch.cuda.empty_cache()
     phase_model(torch)
-    launches = phase_cli(torch)
-    kernel["launches"] = launches[kernel["name"]]
-    emit({"kernels": [kernel]})
+    int8_launches = phase_int8_model(torch)
+    cli_launches = phase_cli(torch)
+    # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
+    # the int8 path; each path was read with the counts set to 0 before it
+    for name, row in rows.items():
+        row["launches"] = (cli_launches if name == "saliency_head" else int8_launches)[name]
+    emit({"kernels": [rows[name] for name in KERNELS]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from vinet_tpu_torch.ops import saliency_head
+from vinet_tpu_torch.ops import int8_mm, quant, saliency_head, tconv
 
 torch.set_num_threads(2)
 
@@ -98,3 +98,171 @@ def test_head_kernel_matches_plain_on_card(cuda, dtype, kt, h, w, bias):
     want = saliency_head.saliency_head_plain(z, w6, b6, w7, b7)
     assert saliency_head.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- int8_mm, tconv
+
+
+def _ints(rng, shape):
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+
+def _bf16(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+
+
+def _operands(dtype, shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    make = _ints if dtype == torch.int8 else _bf16
+    return [make(rng, s) for s in shapes]
+
+
+def _assert_matches_plain(got, want, dtype):
+    """int8: exact. bf16: both sum exact f32 products in f32, in other
+    orders: 1e-5 of the largest output."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_gemm_kernels_on_cpu_take_the_plain_versions_and_count_no_launch(dtype):
+    a, b = _operands(dtype, [(6, 9), (9, 5)])
+    x, w = _operands(dtype, [(7, 6, 9), (3, 9, 4)])
+    before = (int8_mm.launches, tconv.launches)
+    torch.testing.assert_close(int8_mm.int8_mm(a, b), int8_mm.int8_mm_plain(a, b),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(tconv.tconv(x, w, 2), tconv.tconv_plain(x, w, 2), rtol=0, atol=0)
+    assert (int8_mm.launches, tconv.launches) == before
+    assert int8_mm.int8_mm(a, b).dtype == int8_mm.ACC[dtype]
+    assert tuple(tconv.tconv(x, w, 2).shape) == (3, 6, 4)
+
+
+def test_int8_plain_versions_are_exact():
+    a, b = _operands(torch.int8, [(5, 300), (300, 7)])
+    want = a.numpy().astype(np.int64) @ b.numpy().astype(np.int64)
+    np.testing.assert_array_equal(int8_mm.int8_mm_plain(a, b).numpy(), want)
+    x, w = _operands(torch.int8, [(9, 4, 200), (3, 200, 6)])
+    xs, ws = x.numpy().astype(np.int64), w.numpy().astype(np.int64)
+    want = np.stack([sum(xs[2 * t + k] @ ws[k] for k in range(3)) for t in range(4)])
+    np.testing.assert_array_equal(tconv.tconv_plain(x, w, 2).numpy(), want)
+
+
+def test_gemm_cuda_entries_reject_cpu_tensors():
+    a, b = _operands(torch.int8, [(4, 4), (4, 4)])
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_mm.int8_mm_cuda(a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        tconv.tconv_cuda(a[None], b[None], 1)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("mixed", TypeError), ("f32", TypeError), ("inner", ValueError), ("rank", ValueError),
+    ("device", ValueError),
+])
+def test_int8_mm_wrapper_rejects_what_the_kernel_does_not_take(case, error):
+    a, b = _operands(torch.int8, [(4, 6), (6, 3)])
+    if case == "mixed":
+        b = b.to(torch.bfloat16)
+    elif case == "f32":
+        a, b = a.float(), b.float()
+    elif case == "inner":
+        b = b[:5]
+    elif case == "rank":
+        a = a[None]
+    elif case == "device":
+        b = b.to("meta")
+    with pytest.raises(error):
+        int8_mm._check(a, b)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("mixed", TypeError), ("channels", ValueError), ("short", ValueError),
+    ("stride", ValueError), ("device", ValueError),
+])
+def test_tconv_wrapper_rejects_what_the_kernel_does_not_take(case, error):
+    x, w = _operands(torch.int8, [(5, 4, 6), (3, 6, 2)])
+    stride = 1
+    if case == "mixed":
+        w = w.to(torch.bfloat16)
+    elif case == "channels":
+        w = w[:, :5]
+    elif case == "short":
+        x = x[:2]
+    elif case == "stride":
+        stride = 0
+    elif case == "device":
+        w = w.to("meta")
+    with pytest.raises(error):
+        tconv._check(x, w, stride)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [
+    (4096, 1024, 1024),  # the experiment's shape
+    (1000, 333, 77),  # ragged M, K, N
+    (129, 1, 130),
+    (5, 147, 64),  # the stem conv_s im2col's K and N
+    (300, 40, 16),
+])
+def test_int8_mm_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
+    a, b = (t.to(cuda) for t in _operands(dtype, [(m, k), (k, n)]))
+    before = int8_mm.launches
+    got = int8_mm.int8_mm(a, b)
+    torch.cuda.synchronize()
+    assert int8_mm.launches == before + 1
+    _assert_matches_plain(got, int8_mm.int8_mm_plain(a, b), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("t_pad,m,c,kt,co,stride", [
+    (38, 4096, 64, 7, 64, 2),  # the experiment's stem conv, M cut
+    (9, 1000, 20, 3, 37, 2),  # ragged M, CO; C % 4 != 0
+    (7, 77, 6, 7, 5, 1),
+    (10, 300, 48, 3, 48, 1),
+    (6, 130, 384, 3, 384, 1),  # the model's widest conv_t
+])
+def test_tconv_kernel_matches_plain_on_card(cuda, dtype, t_pad, m, c, kt, co, stride):
+    x, w = (t.to(cuda) for t in _operands(dtype, [(t_pad, m, c), (kt, c, co)]))
+    before = tconv.launches
+    got = tconv.tconv(x, w, stride)
+    torch.cuda.synchronize()
+    assert tconv.launches == before + 1
+    _assert_matches_plain(got, tconv.tconv_plain(x, w, stride), dtype)
+
+
+
+
+# (kernel, stride, padding, Cin, Cout): every conv kind of the int8 model, as
+# in tests/torch_port_util.py, which this file does not import so that it
+# runs alone where JAX is absent
+CONV_KINDS = [
+    ((1, 1, 1), (1, 1, 1), (0, 0, 0), 16, 24),  # Inception 1x1x1
+    ((7, 1, 1), (2, 1, 1), (3, 0, 0), 8, 8),  # stem conv_t
+    ((3, 1, 1), (1, 1, 1), (1, 0, 0), 8, 12),  # SepConv3d conv_t
+    ((1, 7, 7), (1, 2, 2), (0, 3, 3), 3, 8),  # stem conv_s
+    ((1, 3, 3), (1, 1, 1), (0, 1, 1), 5, 7),  # SepConv3d conv_s, decoder conv1
+    ((5, 3, 3), (5, 1, 1), (0, 1, 1), 6, 4),  # decoder conv3, conv4
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout", CONV_KINDS)
+def test_int8_conv_routes_on_card_match_the_exact_cpu_route(cuda, kernel, stride, padding,
+                                                           cin, cout):
+    rng = np.random.default_rng(1)
+    xq = _ints(rng, (2, cin, 10, 9, 11))
+    wq = _ints(rng, (cout, cin, *kernel))
+    want = quant.conv_acc_plain(xq, wq, stride, padding)
+    before = (int8_mm.launches, tconv.launches)
+    got = quant.conv_acc_gemm(xq.to(cuda), wq.to(cuda), stride, padding)
+    torch.cuda.synchronize()
+    temporal = kernel[0] > 1 and kernel[1:] == (1, 1)
+    assert (int8_mm.launches, tconv.launches) == (before[0] + (not temporal),
+                                                  before[1] + temporal)
+    assert torch.equal(got.cpu(), want)

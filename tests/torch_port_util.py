@@ -10,10 +10,21 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "artifacts", "streamft_fixture.npz")
 TORCH_THREADS = 2  # six xdist workers share the host's cores
+
+# (kernel, stride, padding, Cin, Cout): every conv kind of the int8 model
+CONV_KINDS = {
+    "1x1x1": ((1, 1, 1), (1, 1, 1), (0, 0, 0), 16, 24),  # Inception branches
+    "7x1x1_s2_p3": ((7, 1, 1), (2, 1, 1), (3, 0, 0), 8, 8),  # stem conv_t
+    "3x1x1_p1": ((3, 1, 1), (1, 1, 1), (1, 0, 0), 8, 12),  # SepConv3d conv_t
+    "1x7x7_s2_p3_cin3": ((1, 7, 7), (1, 2, 2), (0, 3, 3), 3, 8),  # stem conv_s
+    "1x3x3_p1": ((1, 3, 3), (1, 1, 1), (0, 1, 1), 5, 7),  # conv_s, decoder conv1
+    "5x3x3_s5_p011": ((5, 3, 3), (5, 1, 1), (0, 1, 1), 6, 4),  # decoder conv3, conv4
+}
 
 
 def bf16_bits_to_f32(a: np.ndarray) -> np.ndarray:
@@ -51,3 +62,40 @@ def ndhwc_to_ncdhw(a: np.ndarray) -> np.ndarray:
 
 def ncdhw_to_ndhwc(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(a, (0, 2, 3, 4, 1)))
+
+
+def normalized_clip(seed: int, shape=(1, 32, 32, 32, 3)) -> np.ndarray:
+    """A (B, T, H, W, 3) clip of random uint8 frames, ImageNet-normalised, f32."""
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+
+    u8 = np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+    return device_preprocess(torch.from_numpy(u8)).numpy()
+
+
+def conv_paths(node: dict, path: tuple = ()):
+    """(path, node) of every conv of a JAX params tree, float or int8."""
+    for k, v in node.items():
+        if isinstance(v, dict):
+            if "w" in v or "w_q" in v:
+                yield path + (k,), v
+            else:
+                yield from conv_paths(v, path + (k,))
+
+
+def port_name(path: tuple) -> str:
+    """A JAX ViNet(3, 32) conv path -> the port's module name."""
+    from vinet_tpu_torch.io.weights import decoder_names
+
+    if path[0] == "decoder":
+        return f"decoder.{decoder_names(True)[path[1]]}"
+    return ".".join(path)
+
+
+def folded_port_model(trees: tuple):
+    """The port's ViNet(3, 32) with the trees' weights, BatchNorm folded, f32."""
+    from vinet_tpu_torch.io.weights import from_jax_trees
+    from vinet_tpu_torch.models import ViNet, fold_batchnorms
+
+    model = ViNet(3, 32)
+    model.load_state_dict(from_jax_trees(*trees), strict=True)
+    return fold_batchnorms(model.eval()).float()

@@ -10,6 +10,10 @@ inverse of ``vinet_tpu/io/convert.py`` for ViNet (the same transforms as
   * BatchNorm params scale/bias + state mean/var -> weight/bias/
     running_mean/running_var, plus num_batches_tracked (0)
   * decoder conv1..conv7 -> convtspN.i
+  * an int8 conv of ``vinet_tpu/ops/quant.py`` ({w_q, w_scale, x_scale[, b]})
+    -> the buffers of ``ops/quant.py::QuantConv3d``: w_q (DHWIO -> OIDHW, as
+    a float weight), w_scale, x_scale, bias; load it with
+    ``models/inference.py::load_int8_state_dict``
 """
 
 from __future__ import annotations
@@ -22,6 +26,14 @@ _DEC_WITH_CONV6 = {"conv1": "convtsp1.0", "conv2": "convtsp2.0", "conv3": "convt
                    "conv7": "convtsp4.8"}
 _DEC_NO_CONV6 = {"conv1": "convtsp1.0", "conv2": "convtsp2.0", "conv3": "convtsp3.0",
                  "conv4": "convtsp4.0", "conv5": "convtsp4.3", "conv7": "convtsp4.6"}
+# params leaf -> state_dict leaf (float conv, or an int8 conv's buffers)
+_LEAVES = {"w": "weight", "b": "bias", "w_q": "w_q", "w_scale": "w_scale",
+           "x_scale": "x_scale"}
+
+
+def decoder_names(with_conv6: bool) -> dict:
+    """JAX decoder conv key (conv1..conv7) -> the port's module name."""
+    return _DEC_WITH_CONV6 if with_conv6 else _DEC_NO_CONV6
 
 
 def _tensor(v) -> torch.Tensor:
@@ -40,6 +52,10 @@ def _conv_weight(w) -> torch.Tensor:
     return t.permute(4, 3, 0, 1, 2).contiguous()
 
 
+def _leaf(key: str, value) -> torch.Tensor:
+    return _conv_weight(value) if key in ("w", "w_q") else _tensor(value)
+
+
 def from_jax_trees(params: dict, state: dict) -> dict:
     """JAX-package ViNet (params, state) nested dicts of arrays -> the port's
     state_dict of tensors (reference names)."""
@@ -50,11 +66,10 @@ def from_jax_trees(params: dict, state: dict) -> dict:
             name = ".".join(path + [k])
             sv = s_node.get(k, {}) if isinstance(s_node, dict) else {}
             if k == "decoder" and not path:
-                table = _DEC_WITH_CONV6 if "conv6" in v else _DEC_NO_CONV6
+                table = decoder_names("conv6" in v)
                 for conv, node in v.items():
-                    out[f"decoder.{table[conv]}.weight"] = _conv_weight(node["w"])
-                    if "b" in node:
-                        out[f"decoder.{table[conv]}.bias"] = _tensor(node["b"])
+                    for leaf, value in node.items():
+                        out[f"decoder.{table[conv]}.{_LEAVES[leaf]}"] = _leaf(leaf, value)
             elif isinstance(v, dict) and set(v) == {"scale", "bias"}:
                 out[f"{name}.weight"] = _tensor(v["scale"])
                 out[f"{name}.bias"] = _tensor(v["bias"])
@@ -63,10 +78,8 @@ def from_jax_trees(params: dict, state: dict) -> dict:
                 out[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
             elif isinstance(v, dict):
                 walk(v, sv, path + [k])
-            elif k == "w":
-                out[".".join(path + ["weight"])] = _conv_weight(v)
-            elif k == "b":
-                out[".".join(path + ["bias"])] = _tensor(v)
+            elif k in _LEAVES:
+                out[".".join(path + [_LEAVES[k]])] = _leaf(k, v)
             else:
                 raise KeyError(f"unhandled params leaf: {name}")
 

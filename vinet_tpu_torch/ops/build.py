@@ -3,7 +3,8 @@ interface and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for ``sm_90a``,
 into ``vinet_tpu_torch/_build/lib<name>-<hash>.so``; the hash covers the
-source and the flags, so an edited source builds anew. The compiler's report
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source builds anew. The compiler's report
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside the library
 as ``.log``. Nothing is built when a module is imported.
 """
@@ -39,6 +40,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
