@@ -7,11 +7,17 @@ fails. Phases, each printing one JSON line:
 
 1. card: name and power limit from nvidia-smi;
 2. build: every hand-written kernel, from the sources in the checkout
-   (``vinet_tpu_torch/csrc``), one ``nvcc`` per source, all at once;
+   (``vinet_tpu_torch/csrc``), one ``nvcc`` per source, all at once; the
+   ``ptxas`` report (no spills allowed) and, from ``cuobjdump -sass``, each
+   library's count of tensor-core (``IMMA``, ``HMMA``) and ``cp.async``
+   (``LDGSTS``) instructions: ``int8_mm`` and ``tconv`` must have all three;
 3. kernel_check / kernel_time: each kernel against its plain PyTorch version
-   on the card at its paths' shapes and at ragged ones (int8 exactly, bf16 and
-   f32 within 1e-5), and its time beside its plain version's, the library
-   call's and the card's bound;
+   on the card at its paths' shapes, the model's widths and ragged shapes,
+   with B both K-major and row-major (int8 exactly, bf16 and f32 within
+   1e-5), and its time beside its plain version's, the library call's (for
+   int8_mm the faster of B as the kernel gets it and a row-major copy) and
+   the card's bound; at 4096 x 1024 x 1024 also with the host's cost per
+   call left in;
 4. model: the full-width ViNet(3, 32) with the committed fixture weights
    (``artifacts/streamft_fixture.npz``), BatchNorm folded, on a window batch
    of 16 clips of 32 x 224 x 384 in bf16, against f32 on the card, and f32 on
@@ -37,6 +43,7 @@ import concurrent.futures
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -76,20 +83,6 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean device time of fn over iters launches, by CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -99,19 +92,69 @@ def phase_card() -> str:
     return smi
 
 
+SASS_OPS = ("IMMA", "HMMA", "LDGSTS", "LDSM")  # int8 / bf16 mma, cp.async, ldmatrix
+
+
+def sass_counts(build, so) -> dict:
+    """{function: {op: count}} of the library's SASS, from cuobjdump."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            op = re.search(r"\b(" + "|".join(SASS_OPS) + r")\b", line)
+            if op:
+                counts[fn][op.group(1)] += 1
+    return counts
+
+
+def ptxas_report(log: str) -> dict:
+    """{function: {"regs": n, "spill_bytes": n}} from the -Xptxas -v log."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            fn = head.group(1)
+            report[fn] = {"regs": None, "spill_bytes": 0}
+        elif fn is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                report[fn]["regs"] = int(regs.group(1))
+            report[fn]["spill_bytes"] += sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+    return report
+
+
 def phase_build() -> None:
     from vinet_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc each
         libs = list(pool.map(build.build, KERNELS))
-    ptxas = {}
+    seconds = time.perf_counter() - t0
+    functions, sass = {}, {}
     for name, so in zip(KERNELS, libs):
-        log = so.with_suffix(".log")
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines() if "Used" in ln] \
-            if log.exists() else []
-    emit({"phase": "build", "kernels": list(KERNELS), "seconds": time.perf_counter() - t0,
-          "libraries": [str(so.relative_to(os.getcwd())) for so in libs], "ptxas": ptxas})
+        ptxas = ptxas_report(so.with_suffix(".log").read_text())
+        ops = sass_counts(build, so)
+        functions[name] = {fn: {**ptxas.get(fn, {}), **ops.get(fn, {})}
+                           for fn in sorted(set(ptxas) | set(ops))}
+        sass[name] = {op: sum(c[op] for c in ops.values()) for op in SASS_OPS}
+        if name != "saliency_head":  # the tensor-core GEMM kernels
+            for fn, c in ops.items():
+                check(c["IMMA"] > 0 if "NS_4Int8E" in fn else c["HMMA"] > 0,  # element type
+                      f"{name}: {fn} has no tensor-core instruction")
+            check(all(sass[name][op] > 0 for op in ("IMMA", "HMMA", "LDGSTS")),
+                  f"{name}: SASS counts {sass[name]}")
+    spills = {name: sum(f.get("spill_bytes", 0) for f in functions[name].values())
+              for name in KERNELS}
+    emit({"phase": "build", "kernels": list(KERNELS), "seconds": seconds,
+          "libraries": [str(so.relative_to(os.getcwd())) for so in libs], "sass": sass,
+          "spill_bytes": spills, "functions": functions})
+    check(not any(spills.values()), f"ptxas reports spills: {spills}")
 
 
 def bound(bytes_moved: int, ops: int, dtype) -> tuple:
@@ -138,6 +181,7 @@ def phase_head_kernel(torch) -> dict:
     import torch.nn.functional as F
 
     from vinet_tpu_torch.ops import saliency_head as head
+    from vinet_tpu_torch.tools.timing import cuda_ms
 
     cases = [  # (name, B, kt, H, W, b6, dtype); the first is the main path's
         ("clip32_main_bf16", 16, 2, 224, 384, False, torch.bfloat16),
@@ -165,8 +209,8 @@ def phase_head_kernel(torch) -> dict:
     (z, w6, b6, w7, b7), err = main
     b, _, kt, h, w = z.shape
     iters = 50
-    kernel_ms = cuda_ms(torch, lambda: head.saliency_head_cuda(z, w6, b6, w7, b7), iters)
-    plain_ms = cuda_ms(torch, lambda: head.saliency_head_plain(z, w6, b6, w7, b7), iters)
+    kernel_ms = cuda_ms(lambda: head.saliency_head_cuda(z, w6, b6, w7, b7), iters)
+    plain_ms = cuda_ms(lambda: head.saliency_head_plain(z, w6, b6, w7, b7), iters)
     w6l, w7l = w6.to(z.dtype), w7.to(z.dtype)
     b7l = b7.to(z.dtype)
 
@@ -174,7 +218,7 @@ def phase_head_kernel(torch) -> dict:
         y = torch.relu(F.conv3d(z, w6l))
         return torch.sigmoid(F.conv3d(y, w7l, b7l))[:, 0, 0]
 
-    library_ms = cuda_ms(torch, library, iters)
+    library_ms = cuda_ms(library, iters)
     n_pix = b * h * w
     bytes_moved = z.numel() * z.element_size() + n_pix * 4 + 4 * (w6.numel() + w7.numel() + 1)
     ops = n_pix * (2 * 32 * 32 * kt + 2 * 32)
@@ -206,41 +250,112 @@ def _gemm_err(torch, got, want, dtype) -> float:
     return err if dtype == torch.int8 else err / max(float(want.abs().max()), 1e-30)
 
 
-# (case, dtype, shapes, stride): int8_mm takes a (M, K) @ b (K, N); tconv the
-# slab x (T_pad, M, C) and w (kt, C, CO). The first case of each is the
-# experiment's shape (scripts/exp_int8_mxu_r5.py stages AB and C).
+# (case, dtype, shapes, stride, layout): int8_mm takes a (M, K) @ b (K, N);
+# tconv the slab x (T_pad, M, C) and w (kt, C, CO); layout is B's (above).
+# Cases named "experiment..." (scripts/exp_int8_mxu_r5.py stages AB and C) or
+# "stem_conv_s..." are timed, with B K-major as the model passes it (a
+# row-major B adds the wrapper's copy; the "rowmajor" cases check that path).
 def _gemm_cases(torch):
     i8, bf = torch.int8, torch.bfloat16
     stem = [(38, 344064, 64), (7, 64, 64)]  # B 16, T 32 + 2*3, 112 x 192, C 64
+    both = [(d, lay) for d in (i8, bf) for lay in ("kn", "nk")]
     return {
         "int8_mm": [
-            ("experiment_4096x1024x1024", i8, [(4096, 1024), (1024, 1024)], None),
-            ("experiment_4096x1024x1024", bf, [(4096, 1024), (1024, 1024)], None),
-            ("ragged_1000x333x77", i8, [(1000, 333), (333, 77)], None),
-            ("ragged_1000x333x77", bf, [(1000, 333), (333, 77)], None),
-            ("ragged_129x1x130", i8, [(129, 1), (1, 130)], None),
+            *[(name, d, [(4096, 1024), (1024, 1024)], None, lay) for d in (i8, bf)
+              for name, lay in (("experiment_4096x1024x1024", "nk"),
+                                ("rowmajor_4096x1024x1024", "kn"))],
+            ("ragged_1000x333x77", i8, [(1000, 333), (333, 77)], None, "kn"),
+            ("ragged_1000x333x77", bf, [(1000, 333), (333, 77)], None, "nk"),
+            ("ragged_129x1x130", i8, [(129, 1), (1, 130)], None, "kn"),
             # Mixed-4b branch0 1x1x1 at batch 16: (16, 480, 8, 14, 24) -> 192
-            ("mixed4b_1x1x1", i8, [(43008, 480), (480, 192)], None),
+            ("mixed4b_1x1x1", i8, [(43008, 480), (480, 192)], None, "nk"),
             # decoder conv4 (5,3,3) s5 im2col at batch 16: (16, 192, 20, 56, 96) -> 64
-            ("decoder_conv4_im2col", i8, [(344064, 8640), (8640, 64)], None),
+            ("decoder_conv4_im2col", i8, [(344064, 8640), (8640, 64)], None, "nk"),
+            # the model's widths: K 216 (Mixed-4c/4d conv_s) and 147 (the stem
+            # conv_s) unpadded take the masked variant; 160 is the padded stem
+            *[(name, d, shapes, None, lay) for d, lay in both for name, shapes in (
+                ("k216_n24_masked", [(5001, 216), (216, 24)]),
+                ("k147_n16_masked", [(3001, 147), (147, 16)]),
+                ("k160_n64", [(3001, 160), (160, 64)]),
+                ("m1_k160_n24", [(1, 160), (160, 24)]))],
+            # the stem conv_s (1,7,7) s2 im2col at batch 16, K padded to 160
+            ("stem_conv_s_im2col_11010048x160x64", i8, [(11010048, 160), (160, 64)], None, "nk"),
         ],
         "tconv": [
-            ("experiment_stem_7x1x1_s2", i8, stem, 2),
-            ("experiment_stem_7x1x1_s2", bf, stem, 2),
-            ("ragged_9x1000x20_co37_s2", i8, [(9, 1000, 20), (3, 20, 37)], 2),
-            ("ragged_9x1000x20_co37_s2", bf, [(9, 1000, 20), (3, 20, 37)], 2),
+            ("experiment_stem_7x1x1_s2", i8, stem, 2, "nk"),
+            ("experiment_stem_7x1x1_s2", bf, stem, 2, "nk"),
+            ("rowmajor_stem_7x1x1_s2", i8, stem, 2, "kn"),
+            ("ragged_9x1000x20_co37_s2", i8, [(9, 1000, 20), (3, 20, 37)], 2, "kn"),
+            ("ragged_9x1000x20_co37_s2", bf, [(9, 1000, 20), (3, 20, 37)], 2, "nk"),
             # Mixed-5c branch1 conv_t (3,1,1) p1 at batch 16: (16, 384, 4, 7, 12)
-            ("mixed5c_conv_t_384", i8, [(6, 5376, 384), (3, 384, 384)], 1),
+            ("mixed5c_conv_t_384", i8, [(6, 1344, 384), (3, 384, 384)], 1, "nk"),
+            # C 48 and 208: 32-byte K slices straddle two taps; thin CO; M % 128 != 0
+            *[(name, d, shapes, 1, lay) for d, lay in both for name, shapes in (
+                ("c48_co16_m5000", [(10, 5000, 48), (3, 48, 16)]),
+                ("c208_co24_m5377", [(6, 5377, 208), (3, 208, 24)]))],
         ],
     }
+
+
+def _time_gemm(torch, name, cuda_fn, plain_fn, args, dtype, iters, host_too) -> dict:
+    """Times of the kernel, its plain version and the library call on args,
+    with the bound and the operation count. int8_mm's library call is timed
+    on B as the kernel gets it and on a row-major copy, and the faster
+    counts. With host_too, the kernel and the library are also timed with
+    the host's cost per call left in (cuda_ms(hide_host=False))."""
+    import torch.nn.functional as F
+
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    kernel = lambda: cuda_fn(*args)
+    kernel_ms = cuda_ms(kernel, iters)
+    plain_ms = cuda_ms(lambda: plain_fn(*args), iters)
+    rec = {}
+    if name == "int8_mm":
+        a, b = args
+        m, k = a.shape
+        n = b.shape[1]
+        ops = 2 * m * k * n
+        out_bytes = m * n * 4
+        mm = torch._int_mm if dtype == torch.int8 else torch.matmul
+        library = "torch._int_mm" if dtype == torch.int8 else "torch.matmul"
+        b_row = b.contiguous()
+        by_layout = {"b_as_kernel": cuda_ms(lambda: mm(a, b), iters),
+                     "b_row_major": cuda_ms(lambda: mm(a, b_row), iters)}
+        rec["library_ms_by_b_layout"] = by_layout
+        lib = (lambda: mm(a, b)) if by_layout["b_as_kernel"] <= by_layout["b_row_major"] \
+            else (lambda: mm(a, b_row))
+        library_ms = min(by_layout.values())
+    else:
+        x, w, st = args
+        kt, c, co = w.shape
+        t_out = (x.shape[0] - kt) // st + 1
+        ops = 2 * t_out * x.shape[1] * kt * c * co
+        out_bytes = t_out * x.shape[1] * co * 4
+        # stage C's geometry NDHWC (16, 32, 112, 192, 64), as cuDNN's
+        # channels-last conv3d in bf16 (there is no int8 conv3d); it writes
+        # bf16, half the bytes of the kernel's int32
+        xc = torch.randn((16, 64, 32, 112, 192), device="cuda", dtype=torch.bfloat16)
+        xc = xc.contiguous(memory_format=torch.channels_last_3d)
+        wc = w.to(torch.bfloat16).permute(2, 1, 0)[..., None, None].contiguous()
+        lib = lambda: F.conv3d(xc, wc, stride=(st, 1, 1), padding=((kt - 1) // 2, 0, 0))
+        library = "F.conv3d bf16 channels_last_3d"
+        library_ms = cuda_ms(lib, iters)
+    if host_too:
+        rec["ms_host_included"] = cuda_ms(kernel, iters, hide_host=False)
+        rec["library_ms_host_included"] = cuda_ms(lib, iters, hide_host=False)
+    in_bytes = sum(t.numel() * t.element_size() for t in args[:2])
+    bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype)
+    return {"bytes": in_bytes + out_bytes, "ops": ops, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library": library, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "achieved_tops": ops / kernel_ms / 1e9, **rec}
 
 
 def phase_gemm_kernels(torch) -> dict:
     """int8_mm and tconv against their plain versions on every case; times of
     kernel, plain version and library call at the experiment's shapes, in
-    int8 and bf16. Returns the kernels-line rows (int8, the model's path)."""
-    import torch.nn.functional as F
-
+    int8 and bf16, and at the full-size stem conv_s im2col product. Returns
+    the kernels-line rows (int8, the model's path)."""
     from vinet_tpu_torch.ops import int8_mm, tconv
 
     mods = {"int8_mm": (int8_mm.int8_mm_cuda, int8_mm.int8_mm_plain),
@@ -248,8 +363,9 @@ def phase_gemm_kernels(torch) -> dict:
     rows = {}
     for name, cases in _gemm_cases(torch).items():
         cuda_fn, plain_fn = mods[name]
-        for i, (case, dtype, shapes, stride) in enumerate(cases):
+        for i, (case, dtype, shapes, stride, layout) in enumerate(cases):
             args = _gemm_operands(torch, dtype, shapes, seed=i)
+            args[1] = args[1] if layout == "kn" else int8_mm.k_major_view(args[1])
             if stride is not None:
                 args.append(stride)
             got = cuda_fn(*args)
@@ -258,56 +374,28 @@ def phase_gemm_kernels(torch) -> dict:
             err = _gemm_err(torch, got, want, dtype)
             tol = 0.0 if dtype == torch.int8 else KERNEL_TOL
             emit({"phase": "kernel_check", "kernel": name, "case": case, "dtype": str(dtype),
-                  "shapes": shapes, "stride": stride,
+                  "shapes": shapes, "stride": stride, "b_layout": layout,
                   "max_abs_err" if dtype == torch.int8 else "max_rel_err": err, "tol": tol})
             check(got.shape == want.shape and err <= tol, f"{name} {case} {dtype}: err {err}")
             del got, want
-            if not case.startswith("experiment"):
+            if not case.startswith(("experiment", "stem_conv_s")):
                 continue
-            iters = 20 if name == "int8_mm" else 5
-            kernel_ms = cuda_ms(torch, lambda: cuda_fn(*args), iters)
-            plain_ms = cuda_ms(torch, lambda: plain_fn(*args), iters)
-            if name == "int8_mm":
-                a, b = args
-                m, k = a.shape
-                n = b.shape[1]
-                ops = 2 * m * k * n
-                out_bytes = m * n * 4
-                lib = (lambda: torch._int_mm(a, b)) if dtype == torch.int8 else \
-                    (lambda: torch.matmul(a, b))
-                library = "torch._int_mm" if dtype == torch.int8 else "torch.matmul"
-            else:
-                x, w, st = args
-                kt, c, co = w.shape
-                t_out = (x.shape[0] - kt) // st + 1
-                ops = 2 * t_out * x.shape[1] * kt * c * co
-                out_bytes = t_out * x.shape[1] * co * 4
-                # stage C's geometry NDHWC (16, 32, 112, 192, 64), as cuDNN's
-                # channels-last conv3d in bf16 (there is no int8 conv3d)
-                xc = torch.randn((16, 64, 32, 112, 192), device="cuda", dtype=torch.bfloat16)
-                xc = xc.contiguous(memory_format=torch.channels_last_3d)
-                wc = w.to(torch.bfloat16).permute(2, 1, 0)[..., None, None].contiguous()
-                lib = lambda: F.conv3d(xc, wc, stride=(st, 1, 1), padding=((kt - 1) // 2, 0, 0))
-                library = "F.conv3d bf16 channels_last_3d"
-            library_ms = cuda_ms(torch, lib, iters)
-            in_bytes = sum(t.numel() * t.element_size() for t in args[:2])
-            bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype)
+            small = case.startswith("experiment_4096")  # host cost can show here
+            rec = _time_gemm(torch, name, cuda_fn, plain_fn, args, dtype, 20 if small else 5,
+                             host_too=small)
             emit({"phase": "kernel_time", "kernel": name, "dtype": str(dtype), "case": case,
-                  "bytes": in_bytes + out_bytes, "ops": ops, "ms": kernel_ms,
-                  "plain_ms": plain_ms, "library": library, "library_ms": library_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "achieved_tops": ops / kernel_ms / 1e9})
-            if dtype == torch.int8:
+                  "b_layout": layout, **rec})
+            if dtype == torch.int8 and case.startswith("experiment"):
                 rows[name] = {
                     "name": name, "route": "cuda", "source": f"vinet_tpu_torch/csrc/{name}.cu",
                     "replaces": {"int8_mm": "scripts/exp_int8_mxu_r5.py:64",
                                  "tconv": "scripts/exp_int8_mxu_r5.py:154"}[name],
-                    "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+                    "max_abs_err": err,
+                    **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")}}
             del args
             torch.cuda.empty_cache()
     return rows
-
 
 
 def profile_window_batch(torch, model, x) -> dict:
@@ -315,7 +403,7 @@ def profile_window_batch(torch, model, x) -> dict:
     operations are not in it) and where the device time of one window batch
     goes, by kernel, from torch.profiler. ``kernel_ms`` sums the device time
     of each hand-written kernel (int8_mm's and tconv's instances of the
-    shared GEMM core by their A loaders, RowMajorA and SlabA)."""
+    shared GEMM core by their A loaders, Int8MmA and TconvA)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
@@ -337,7 +425,7 @@ def profile_window_batch(torch, model, x) -> dict:
             "device_busy_share": device_ms / wall_ms,
             "kernel_ms": {name: sum(ms for k, ms, _ in kernels if marker in k)
                           for name, marker in (("saliency_head", "saliency_head"),
-                                               ("int8_mm", "RowMajorA"), ("tconv", "SlabA"))},
+                                               ("int8_mm", "Int8MmA"), ("tconv", "TconvA"))},
             "top_kernels": [[k[:80], ms, n] for k, ms, n in kernels[:10]]}
 
 
@@ -489,12 +577,13 @@ def phase_int8_model(torch) -> dict:
     check(n_quant == 81, f"{n_quant} quantized convs, expected 81")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the int8 path")
+    for k in ("int8_mm", "tconv"):  # a renamed kernel would be credited 0 ms
+        check(profile["kernel_ms"][k] > 0, f"the int8 profile credits no time to {k}")
     check(max_err <= INT8_MAX_TOL and mean_err <= INT8_MEAN_TOL and cc_min >= INT8_CC_MIN,
           f"int8 vs bf16: max {max_err}, mean {mean_err}, cc min {cc_min}")
     check(cpu_max <= INT8_CPU_MAX_TOL and cpu_mean <= INT8_CPU_MEAN_TOL,
           f"card int8 vs CPU int8: max {cpu_max}, mean {cpu_mean}")
     return launches
-
 
 
 def _write_videos(root: str, n_videos: int, n_frames: int, size: tuple) -> None:

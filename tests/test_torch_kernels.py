@@ -200,17 +200,95 @@ def test_tconv_wrapper_rejects_what_the_kernel_does_not_take(case, error):
         tconv._check(x, w, stride)
 
 
+def _as_layout(b, layout):
+    """b as it is ("kn": contiguous (K, N) or (kt, C, CO)), or the same values
+    as a view of a contiguous K-major tensor ("nk": (N, K) or (CO, kt, C))."""
+    return b if layout == "kn" else int8_mm.k_major_view(b)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(40, 24), (3, 16, 8)])
+def test_k_major_passes_a_k_major_view_on_and_copies_a_row_major_b_once(dtype, shape):
+    """The kernels' B operand: a view of a contiguous K-major tensor goes
+    through without a copy (same storage), a contiguous (K, N) or (kt, C,
+    CO) tensor is copied once into that layout."""
+    (b,) = _operands(dtype, [shape])
+    bt = int8_mm.k_major(b)
+    assert bt.is_contiguous() and bt.data_ptr() != b.data_ptr()
+    assert torch.equal(bt, b.permute(b.dim() - 1, *range(b.dim() - 1)))
+    view = _as_layout(b, "nk")
+    assert torch.equal(view, b) and not view.is_contiguous()
+    again = int8_mm.k_major(view)
+    assert again.data_ptr() == view.data_ptr() and torch.equal(again, bt)
+
+
+def test_gemm_sweep_builds_each_tiling_with_its_macros_and_counts_spills(monkeypatch):
+    """The tiling sweep covers the package's own tiling, passes each tiling
+    to nvcc as the core's macros, and reads ptxas's spill bytes."""
+    import subprocess
+    import types
+
+    from vinet_tpu_torch.tools import sweep_gemm
+
+    assert sweep_gemm.DEFAULT in sweep_gemm.TILINGS
+    assert len(set(sweep_gemm.TILINGS)) == 18
+    cmds = []
+
+    def fake_run(cmd, **kwargs):
+        cmds.append(cmd)
+        log = "ptxas info : Used 128 registers\n  8 bytes spill stores, 8 bytes spill loads\n"
+        return types.SimpleNamespace(returncode=0, stdout="", stderr=log)
+
+    monkeypatch.setattr(sweep_gemm.build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    so, spills = sweep_gemm._build("int8_mm", (128, 3, 64))
+    assert spills == 16 and so.name == "libint8_mm-r128-s3-n64.so"
+    assert {"-DGEMM_ROW_BYTES=128", "-DGEMM_STAGES=3", "-DGEMM_MAX_BN=64"} <= set(cmds[0])
+    assert cmds[0][-1].endswith("csrc/int8_mm.cu")
+
+
+@pytest.mark.parametrize("cin", [3, 24])  # the stem conv_s, K 147; Mixed-4c/4d conv_s, K 216
+def test_conv_acc_gemm_pads_im2col_k_to_16_with_a_k_major_weight(cin, monkeypatch):
+    kernel, stride, padding = ((1, 7, 7), (1, 2, 2), (0, 3, 3)) if cin == 3 else \
+        ((1, 3, 3), (1, 1, 1), (0, 1, 1))
+    rng = np.random.default_rng(cin)
+    xq = _ints(rng, (2, cin, 3, 9, 11))
+    wq = _ints(rng, (16, cin, *kernel))
+    k = cin * kernel[1] * kernel[2]
+    seen = []
+
+    def record(a, b):
+        seen.append((a.shape, b.shape, int8_mm.k_major(b).data_ptr() == b.data_ptr(),
+                     bool((a[:, k:] == 0).all()), bool((b[k:] == 0).all())))
+        return int8_mm.int8_mm_plain(a, b)
+
+    monkeypatch.setattr(quant, "int8_mm", record)
+    got = quant.conv_acc_gemm(xq, wq, stride, padding)
+    assert torch.equal(got, quant.conv_acc_plain(xq, wq, stride, padding))
+    ((a_shape, b_shape, no_copy, a_pad_zero, b_pad_zero),) = seen
+    kp = -(-k // 16) * 16
+    assert a_shape[1] == b_shape[0] == kp and kp > k and b_shape[1] == 16
+    assert no_copy and a_pad_zero and b_pad_zero
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [
     (4096, 1024, 1024),  # the experiment's shape
     (1000, 333, 77),  # ragged M, K, N
     (129, 1, 130),
-    (5, 147, 64),  # the stem conv_s im2col's K and N
+    (5, 147, 64),  # the stem conv_s im2col's K and N: the masked variant
     (300, 40, 16),
+    (3001, 160, 64),  # the stem conv_s im2col with K padded to 160
+    (1000, 216, 24),  # Mixed-4c/4d conv_s im2col, unpadded K: masked
+    (777, 147, 16),
+    (1, 160, 24),
+    (2000, 832, 832),  # the decoder's widest N
 ])
-def test_int8_mm_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
+def test_int8_mm_kernel_matches_plain_on_card(cuda, dtype, m, k, n, layout):
     a, b = (t.to(cuda) for t in _operands(dtype, [(m, k), (k, n)]))
+    b = _as_layout(b, layout)
     before = int8_mm.launches
     got = int8_mm.int8_mm(a, b)
     torch.cuda.synchronize()
@@ -219,16 +297,20 @@ def test_int8_mm_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("t_pad,m,c,kt,co,stride", [
     (38, 4096, 64, 7, 64, 2),  # the experiment's stem conv, M cut
-    (9, 1000, 20, 3, 37, 2),  # ragged M, CO; C % 4 != 0
+    (9, 1000, 20, 3, 37, 2),  # ragged M, CO; C % 16 != 0: the masked variant
     (7, 77, 6, 7, 5, 1),
     (10, 300, 48, 3, 48, 1),
     (6, 130, 384, 3, 384, 1),  # the model's widest conv_t
+    (10, 1000, 48, 3, 16, 1),  # C 48, 208: 32-byte K slices straddle two taps
+    (6, 1001, 208, 3, 24, 1),
 ])
-def test_tconv_kernel_matches_plain_on_card(cuda, dtype, t_pad, m, c, kt, co, stride):
+def test_tconv_kernel_matches_plain_on_card(cuda, dtype, t_pad, m, c, kt, co, stride, layout):
     x, w = (t.to(cuda) for t in _operands(dtype, [(t_pad, m, c), (kt, c, co)]))
+    w = _as_layout(w, layout)
     before = tconv.launches
     got = tconv.tconv(x, w, stride)
     torch.cuda.synchronize()
@@ -247,6 +329,7 @@ CONV_KINDS = [
     ((3, 1, 1), (1, 1, 1), (1, 0, 0), 8, 12),  # SepConv3d conv_t
     ((1, 7, 7), (1, 2, 2), (0, 3, 3), 3, 8),  # stem conv_s
     ((1, 3, 3), (1, 1, 1), (0, 1, 1), 5, 7),  # SepConv3d conv_s, decoder conv1
+    ((1, 3, 3), (1, 1, 1), (0, 1, 1), 24, 16),  # Mixed-4c/4d conv_s, K 216
     ((5, 3, 3), (5, 1, 1), (0, 1, 1), 6, 4),  # decoder conv3, conv4
 ]
 

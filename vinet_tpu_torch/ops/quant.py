@@ -19,7 +19,7 @@ model's sizes (the largest K is 27 * 832 = 22,464, and 22,464 * 127**2 <
 kernels (``conv_acc_gemm``): ``(kt, 1, 1)`` convs through ``tconv`` on the
 T-major padded slab, everything else through ``int8_mm``, a ``1x1x1`` conv
 directly on the channels-last activations and any other shape on an im2col
-gather (data movement only). The card route runs on CPU tensors too, through
+gather (data movement only) whose K is padded with zeros to a multiple of 16. The card route runs on CPU tensors too, through
 the kernels' plain versions, so the tests rehearse it.
 """
 
@@ -36,6 +36,7 @@ from vinet_tpu_torch.ops.tconv import tconv
 
 QMAX = 127
 SCALE_MIN = 1e-12
+K_ALIGN = 16  # int8_mm copies 16-byte chunks of A's rows: its fast variant needs K % 16 == 0
 
 
 @contextlib.contextmanager
@@ -92,26 +93,34 @@ def conv_acc_plain(xq, w_q, stride, padding) -> torch.Tensor:
 def conv_acc_gemm(xq, w_q, stride, padding) -> torch.Tensor:
     """int32 accumulator of an int8 conv through the int8_mm and tconv
     kernels. xq (B, C, T, H, W) int8 in any memory format, w_q (O, C, kt, kh,
-    kw) int8. Returns (B, O, To, Ho, Wo), a view of a channels-last result."""
+    kw) int8. Returns (B, O, To, Ho, Wo), a view of a channels-last result.
+    Each weight is built K-major, the layout the kernels read, so the
+    wrappers pass it on without a copy."""
     b, c, t, h, w = xq.shape
     o, _, kt, kh, kw = w_q.shape
     (st, sh, sw), (pt, ph, pw) = stride, padding
     x = xq.permute(0, 2, 3, 4, 1)  # (B, T, H, W, C): free for a channels-last xq
     if (kh, kw, sh, sw, ph, pw) == (1, 1, 1, 1, 0, 0):
         if (kt, st, pt) == (1, 1, 0):  # 1x1x1: one product over B*T*H*W rows
-            acc = int8_mm(x.reshape(-1, c).contiguous(), w_q.reshape(o, c).t().contiguous())
+            acc = int8_mm(x.reshape(-1, c).contiguous(), w_q.reshape(o, c).t())
             return acc.view(b, t, h, w, o).permute(0, 4, 1, 2, 3)
         slab = x.new_zeros((t + 2 * pt, b, h, w, c))  # T-major, zero-padded in T
         slab[pt:pt + t] = x.permute(1, 0, 2, 3, 4)
-        acc = tconv(slab.view(t + 2 * pt, b * h * w, c),
-                    w_q[:, :, :, 0, 0].permute(2, 1, 0).contiguous(), st)
+        wt = w_q[:, :, :, 0, 0].permute(0, 2, 1).contiguous()  # (O, kt, C)
+        acc = tconv(slab.view(t + 2 * pt, b * h * w, c), wt.permute(1, 2, 0), st)
         return acc.view(-1, b, h, w, o).permute(1, 4, 0, 2, 3)
-    # im2col: K ordered (dt, dh, dw, c), the weight's (kt, kh, kw, C, O) order
+    # im2col: K ordered (dt, dh, dw, c), the weight's (kt, kh, kw, C) order,
+    # padded with zeros to a multiple of K_ALIGN
     xp = F.pad(x, (0, 0, pw, pw, ph, ph, pt, pt))
-    cols = xp.unfold(1, kt, st).unfold(2, kh, sh).unfold(3, kw, sw)  # (B,To,Ho,Wo,C,kt,kh,kw)
-    to, ho, wo = cols.shape[1:4]
-    cols = cols.permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(-1, kt * kh * kw * c)
-    acc = int8_mm(cols, w_q.permute(2, 3, 4, 1, 0).reshape(-1, o).contiguous())
+    patches = xp.unfold(1, kt, st).unfold(2, kh, sh).unfold(3, kw, sw)  # (B,To,Ho,Wo,C,kt,kh,kw)
+    to, ho, wo = patches.shape[1:4]
+    k = kt * kh * kw * c
+    kp = -(-k // K_ALIGN) * K_ALIGN
+    cols = x.new_empty((b, to, ho, wo, kp))
+    cols[..., :k].unflatten(-1, (kt, kh, kw, c)).copy_(patches.permute(0, 1, 2, 3, 5, 6, 7, 4))
+    cols[..., k:].zero_()
+    wt = F.pad(w_q.permute(0, 2, 3, 4, 1).reshape(o, k), (0, kp - k))  # (O, Kp)
+    acc = int8_mm(cols.view(-1, kp), wt.t())
     return acc.view(b, to, ho, wo, o).permute(0, 4, 1, 2, 3)
 
 

@@ -7,9 +7,16 @@ With ``x`` the zero-padded slab ``(T_pad, M, C)`` and ``w`` ``(kt, C, CO)``,
 
 - ``tconv_plain``: plain PyTorch, one product per tap, exact for int8 (int64
   on the CPU, float64 on a card) and f32 for bf16;
-- the hand-written CUDA kernel ``csrc/tconv.cu`` for Hopper, which replaces
-  the TPU kernel ``scripts/exp_int8_mxu_r5.py:154`` ``pallas_tconv``
-  (``pallas_call`` at ``:162``, body ``_tconv_kernel`` at ``:136``).
+- the hand-written CUDA kernel ``csrc/tconv.cu`` for Hopper (tensor cores,
+  ``csrc/gemm_core.cuh``), which replaces the TPU kernel
+  ``scripts/exp_int8_mxu_r5.py:154`` ``pallas_tconv`` (``pallas_call`` at
+  ``:162``, body ``_tconv_kernel`` at ``:136``).
+
+The kernel takes ``w`` K-major, as ``(CO, kt, C)`` (``int8_mm.k_major``): a
+``w`` that is a permuted view of a contiguous ``(CO, kt, C)`` tensor passes
+without a copy, a contiguous ``(kt, C, CO)`` one is copied once. Its fast
+variant needs ``C * element size`` to be a multiple of 16 bytes (every
+``conv_t`` of the model); any other C runs a masked variant.
 
 ``tconv`` takes the plain version for CPU tensors only. For a CUDA tensor it
 launches the kernel or raises; it never falls back. ``launches`` counts the
@@ -24,7 +31,7 @@ import ctypes
 import torch
 
 from vinet_tpu_torch.ops import build
-from vinet_tpu_torch.ops.int8_mm import ACC, MAX_N
+from vinet_tpu_torch.ops.int8_mm import ACC, k_major
 
 launches = 0  # kernel launches by tconv; a run may reset it to 0
 
@@ -76,21 +83,18 @@ def tconv_cuda(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tenso
     if x.device.type != "cuda":
         raise ValueError(f"tconv_cuda needs CUDA tensors, got {x.device}")
     t_out = _check(x, w, stride)
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x and w must be contiguous")
-    if t_out > 65535:
-        raise ValueError(f"{t_out} output taps exceed the kernel grid's 65535")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
     _, m, c = x.shape
     kt, _, co = w.shape
-    if co > MAX_N:
-        raise ValueError(f"CO {co} exceeds the kernel grid's {MAX_N}")
+    wt = k_major(w)
     out = torch.empty((t_out, m, co), dtype=ACC[x.dtype], device=x.device)
     if m == 0 or co == 0:
         return out
     lib = _library()
     fn = lib.tconv_s8 if x.dtype == torch.int8 else lib.tconv_bf16
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), t_out, m, c, kt, co, stride, stream)
+    rc = fn(x.data_ptr(), wt.data_ptr(), out.data_ptr(), t_out, m, c, kt, co, stride, stream)
     if rc != 0:
         raise RuntimeError(f"tconv kernel launch failed: cudaError {rc}")
     launches += 1
