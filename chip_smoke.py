@@ -10,19 +10,25 @@ fails. Phases, each printing one JSON line:
    (``vinet_tpu_torch/csrc``), one ``nvcc`` per source, all at once; the
    ``ptxas`` report (no spills allowed) and, from ``cuobjdump -sass``, each
    library's count of tensor-core (``IMMA``, ``HMMA``) and ``cp.async``
-   (``LDGSTS``) instructions: ``int8_mm`` and ``tconv`` must have all three;
+   (``LDGSTS``) instructions: ``int8_mm`` and ``tconv`` must have all three,
+   every bf16 instance of the head ``HMMA`` and every cp.async instance of
+   it ``LDGSTS``;
 3. kernel_check / kernel_time: each kernel against its plain PyTorch version
    on the card at its paths' shapes, the model's widths and ragged shapes,
    with B both K-major and row-major (int8 exactly, bf16 and f32 within
    1e-5), and its time beside its plain version's, the library call's (for
    int8_mm the faster of B as the kernel gets it and a row-major copy) and
    the card's bound; at 4096 x 1024 x 1024 also with the host's cost per
-   call left in;
+   call left in. The head in both modes: fused with the last 2x upsample on
+   the coarse z5 (the main path's) and at full resolution; beside them the
+   time of that upsample alone;
 4. model: the full-width ViNet(3, 32) with the committed fixture weights
    (``artifacts/streamft_fixture.npz``), BatchNorm folded, on a window batch
    of 16 clips of 32 x 224 x 384 in bf16, against f32 on the card, and f32 on
    the card against the CPU at a reduced input, its bf16 clips/s, and a
-   profile of one bf16 window batch (FLOP count, device time by kernel);
+   profile of one bf16 window batch (FLOP count, device time by kernel,
+   the head's time, which must not be 0, and the upsample launches: 4, the
+   fifth is fused into the head);
 5. int8_model (the int8 path): the same model and window batch through
    ``make_inference_fn(dtype="int8")``, calibrated on the batch's first 2
    clips in f32; its clips/s and peak memory, int8 against bf16 on the card,
@@ -149,6 +155,12 @@ def phase_build() -> None:
                       f"{name}: {fn} has no tensor-core instruction")
             check(all(sass[name][op] > 0 for op in ("IMMA", "HMMA", "LDGSTS")),
                   f"{name}: SASS counts {sass[name]}")
+        else:  # saliency_head_kernel<T, kUp, kAsync>: T t (bf16 bits) or f
+            for fn, c in ops.items():
+                inst = re.search(r"saliency_head_kernelI([tf])Lb([01])ELb([01])E", fn)
+                check(inst is not None, f"saliency_head: unexpected function {fn}")
+                check(inst.group(1) == "f" or c["HMMA"] > 0, f"{fn} has no HMMA")
+                check(inst.group(3) == "0" or c["LDGSTS"] > 0, f"{fn} has no LDGSTS")
     spills = {name: sum(f.get("spill_bytes", 0) for f in functions[name].values())
               for name in KERNELS}
     emit({"phase": "build", "kernels": list(KERNELS), "seconds": seconds,
@@ -176,63 +188,110 @@ def _head_inputs(torch, b, kt, h, w, bias, dtype, seed):
     return z, w6, b6, w7, b7
 
 
-def phase_head_kernel(torch) -> dict:
-    """The head kernel against its plain version; times at the main shape."""
+# mode -> cases (name, B, kt, H, W, b6, dtype) of z (full) or z5 (up2x); the
+# first of each is the main path's shape, timed
+HEAD_CASES = {
+    "up2x": [
+        ("clip32_main_bf16", 16, 2, 112, 192, False, "bfloat16"),
+        ("clip32_main_f32", 16, 2, 112, 192, False, "float32"),
+        ("clip48_kt3_bias_bf16", 4, 3, 112, 192, True, "bfloat16"),
+        ("ragged_37x53_bias_f32", 3, 2, 37, 53, True, "float32"),
+        ("ragged_13x7_bf16", 2, 2, 13, 7, False, "bfloat16"),
+        ("ragged_9x41_bias_bf16", 2, 2, 9, 41, True, "bfloat16"),
+        ("ragged_1x1_f32", 2, 2, 1, 1, False, "float32"),
+    ],
+    "full": [
+        ("clip32_main_bf16", 16, 2, 224, 384, False, "bfloat16"),
+        ("clip32_main_f32", 16, 2, 224, 384, False, "float32"),
+        ("clip48_kt3_bias_bf16", 4, 3, 224, 384, True, "bfloat16"),
+        ("ragged_37x53_bias_f32", 3, 2, 37, 53, True, "float32"),
+        ("ragged_13x7_bf16", 2, 2, 13, 7, False, "bfloat16"),
+    ],
+}
+
+
+def _time_head(torch, mode, cuda_fn, plain_fn, args, iters) -> dict:
+    """The head kernel of one mode at args: its time, its plain version's,
+    the unfused cuDNN chain's (interpolate for up2x, conv3d, relu, conv3d,
+    sigmoid in z's dtype) and the card's bound."""
     import torch.nn.functional as F
 
-    from vinet_tpu_torch.ops import saliency_head as head
+    from vinet_tpu_torch.ops.upsample import upsample2x_hw
     from vinet_tpu_torch.tools.timing import cuda_ms
 
-    cases = [  # (name, B, kt, H, W, b6, dtype); the first is the main path's
-        ("clip32_main_bf16", 16, 2, 224, 384, False, torch.bfloat16),
-        ("clip32_main_f32", 16, 2, 224, 384, False, torch.float32),
-        ("clip48_kt3_bias_bf16", 4, 3, 224, 384, True, torch.bfloat16),
-        ("ragged_37x53_bias_f32", 3, 2, 37, 53, True, torch.float32),
-        ("ragged_13x7_bf16", 2, 2, 13, 7, False, torch.bfloat16),
-    ]
-    main = None
-    for i, (name, b, kt, h, w, bias, dtype) in enumerate(cases):
-        args = _head_inputs(torch, b, kt, h, w, bias, dtype, seed=i)
-        got = head.saliency_head_cuda(*args)
-        want = head.saliency_head_plain(*args)
-        torch.cuda.synchronize()
-        check(got.shape == (b, h, w) and bool(torch.isfinite(got).all()), f"{name}: output")
-        err = float((got - want).abs().max())
-        rec = {"phase": "kernel_check", "kernel": "saliency_head", "case": name,
-               "shape": [b, 32, kt, h, w], "dtype": str(dtype), "b6": bias,
-               "max_abs_err": err, "tol": KERNEL_TOL}
-        emit(rec)
-        check(err <= KERNEL_TOL, f"saliency_head {name}: max|err| {err} > {KERNEL_TOL}")
-        if i == 0:
-            main = (args, err)
+    z, w6, b6, w7, b7 = args
+    w6l, w7l, b7l = w6.to(z.dtype), w7.to(z.dtype), b7.to(z.dtype)
 
-    (z, w6, b6, w7, b7), err = main
-    b, _, kt, h, w = z.shape
-    iters = 50
-    kernel_ms = cuda_ms(lambda: head.saliency_head_cuda(z, w6, b6, w7, b7), iters)
-    plain_ms = cuda_ms(lambda: head.saliency_head_plain(z, w6, b6, w7, b7), iters)
-    w6l, w7l = w6.to(z.dtype), w7.to(z.dtype)
-    b7l = b7.to(z.dtype)
-
-    def library():  # unfused conv3d -> relu -> conv3d -> sigmoid (cuDNN)
-        y = torch.relu(F.conv3d(z, w6l))
+    def library():
+        y = upsample2x_hw(z) if mode == "up2x" else z
+        y = torch.relu(F.conv3d(y, w6l))
         return torch.sigmoid(F.conv3d(y, w7l, b7l))[:, 0, 0]
 
-    library_ms = cuda_ms(library, iters)
-    n_pix = b * h * w
-    bytes_moved = z.numel() * z.element_size() + n_pix * 4 + 4 * (w6.numel() + w7.numel() + 1)
-    ops = n_pix * (2 * 32 * 32 * kt + 2 * 32)
+    b, _, kt, h, w = z.shape
+    n_in = b * h * w  # pixels of z: conv6 runs on these
+    n_out = n_in * (4 if mode == "up2x" else 1)
+    bytes_moved = z.numel() * z.element_size() + n_out * 4 + 4 * (w6.numel() + w7.numel() + 1)
+    ops = n_in * 2 * 32 * 32 * kt + n_out * 2 * 32  # conv6, conv7
     bound_ms, bound_by = bound(bytes_moved, ops, z.dtype)
-    rec = {"name": "saliency_head", "route": "cuda",
-           "source": "vinet_tpu_torch/csrc/saliency_head.cu",
-           "replaces": "vinet_tpu/ops/pallas_head.py:54",
-           "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-    emit({"phase": "kernel_time", "kernel": "saliency_head", "shape": list(z.shape),
-          "dtype": str(z.dtype), "bytes": bytes_moved, "flop": ops,
-          "f32_cuda_core_ms": ops / PEAK_OPS_PER_S["torch.float32"] * 1e3,
-          **{k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
-    return rec
+    return {"ms": cuda_ms(lambda: cuda_fn(*args), iters),
+            "plain_ms": cuda_ms(lambda: plain_fn(*args), iters),
+            "library_ms": cuda_ms(library, iters), "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": bytes_moved, "flop": ops}
+
+
+def phase_head_kernel(torch) -> dict:
+    """The head kernel in both modes against its plain versions; times at the
+    main path's shapes, and the last upsample alone. Returns the kernels-line
+    row: the fused mode's numbers (the main path's), both modes under
+    ``modes``."""
+    from vinet_tpu_torch.ops import saliency_head as head
+    from vinet_tpu_torch.ops.upsample import upsample2x_hw
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    fns = {"up2x": (head.saliency_head_up2x_cuda, head.saliency_head_up2x_plain),
+           "full": (head.saliency_head_cuda, head.saliency_head_plain)}
+    modes = {}
+    for mode, cases in HEAD_CASES.items():
+        cuda_fn, plain_fn = fns[mode]
+        for i, (name, b, kt, h, w, bias, dtype) in enumerate(cases):
+            args = _head_inputs(torch, b, kt, h, w, bias, getattr(torch, dtype), seed=i)
+            got = cuda_fn(*args)
+            want = plain_fn(*args)
+            torch.cuda.synchronize()
+            s = 2 if mode == "up2x" else 1
+            check(got.shape == (b, s * h, s * w) and bool(torch.isfinite(got).all()),
+                  f"{mode} {name}: output")
+            err = float((got - want).abs().max())
+            emit({"phase": "kernel_check", "kernel": "saliency_head", "mode": mode, "case": name,
+                  "shape": [b, 32, kt, h, w], "dtype": dtype, "b6": bias,
+                  "max_abs_err": err, "tol": KERNEL_TOL})
+            check(err <= KERNEL_TOL, f"saliency_head {mode} {name}: max|err| {err} > {KERNEL_TOL}")
+            if i == 0:
+                main = args
+                modes[mode] = {"max_abs_err": err}
+            del got, want
+        rec = _time_head(torch, mode, cuda_fn, plain_fn, main, 50)
+        modes[mode].update(rec)
+        emit({"phase": "kernel_time", "kernel": "saliency_head", "mode": mode,
+              "shape": list(main[0].shape), "dtype": str(main[0].dtype), **rec})
+        if mode == "up2x":  # the upsample the fused mode removes, alone
+            z5 = main[0]
+            z5_cl = z5.contiguous(memory_format=torch.channels_last_3d)
+            up = {"ncdhw": cuda_ms(lambda: upsample2x_hw(z5), 50),
+                  "channels_last": cuda_ms(lambda: upsample2x_hw(z5_cl), 50)}
+            emit({"phase": "kernel_time", "kernel": "last_upsample_alone",
+                  "shape": list(z5.shape), "dtype": str(z5.dtype), "ms": up})
+            modes[mode]["last_upsample_alone_ms"] = up
+        del main
+        torch.cuda.empty_cache()
+    fused = modes["up2x"]
+    return {"name": "saliency_head", "route": "cuda",
+            "source": "vinet_tpu_torch/csrc/saliency_head.cu",
+            "replaces": "vinet_tpu/ops/pallas_head.py:54",
+            **{k: fused[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+            "modes": {m: {k: modes[m][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")} for m in modes}}
 
 
 def _gemm_operands(torch, dtype, shapes, seed):
@@ -403,7 +462,8 @@ def profile_window_batch(torch, model, x) -> dict:
     operations are not in it) and where the device time of one window batch
     goes, by kernel, from torch.profiler. ``kernel_ms`` sums the device time
     of each hand-written kernel (int8_mm's and tconv's instances of the
-    shared GEMM core by their A loaders, Int8MmA and TconvA)."""
+    shared GEMM core by their A loaders, Int8MmA and TconvA);
+    ``upsample_trilinear3d_launches`` counts the decoder's upsamples."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
@@ -421,6 +481,8 @@ def profile_window_batch(torch, model, x) -> dict:
                      key=lambda k: -k[1])
     device_ms = sum(ms for _, ms, _ in kernels)
     return {"flop_per_clip": flops.get_total_flops() / x.shape[0],
+            "upsample_trilinear3d_launches": sum(n for k, _, n in kernels
+                                                 if "upsample_trilinear3d" in k),
             "profiled_wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "kernel_ms": {name: sum(ms for k, ms, _ in kernels if marker in k)
@@ -448,7 +510,7 @@ def phase_model(torch) -> None:
     u8 = torch.randint(0, 256, (16, 32, 224, 384, 3), generator=g, device="cuda",
                        dtype=torch.uint8)
     x = device_preprocess(u8)
-    launches0 = head.launches
+    launches0 = (head.launches, head.launches_up2x)
     with torch.inference_mode():
         out16 = gpu16(x.to(torch.bfloat16)).float()
         out32 = gpu32(x)
@@ -480,25 +542,31 @@ def phase_model(torch) -> None:
           "bf16_vs_f32_mean_abs_err": bf16_mean, "bf16_tol": [BF16_MAX_TOL, BF16_MEAN_TOL],
           "card_f32_vs_cpu_f32_max_abs_err": cpu_err, "cpu_input": [1, 32, 128, 192, 3],
           "cpu_tol": CPU_TOL, "bf16_clips_per_s": clips_per_s,
-          "head_launches": head.launches - launches0,
+          "head_launches": head.launches - launches0[0],
+          "head_up2x_launches": head.launches_up2x - launches0[1],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     check(bf16_max <= BF16_MAX_TOL and bf16_mean <= BF16_MEAN_TOL,
           f"bf16 vs f32: max {bf16_max}, mean {bf16_mean}")
     check(cpu_err < CPU_TOL, f"card f32 vs CPU f32: max|err| {cpu_err}")
-    check(head.launches > launches0, "the model's head did not launch the kernel")
+    check(head.launches_up2x > launches0[1], "the model's head did not launch the fused kernel")
+    check(profile["kernel_ms"]["saliency_head"] > 0, "the bf16 profile credits no time to the head")
+    check(profile["upsample_trilinear3d_launches"] == 4,
+          f"{profile['upsample_trilinear3d_launches']} upsample launches in the bf16 window "
+          "batch, expected 4 (the last is fused into the head)")
 
 
 def _launch_counts() -> dict:
     from vinet_tpu_torch.ops import int8_mm, saliency_head, tconv
 
-    return {"saliency_head": saliency_head.launches, "int8_mm": int8_mm.launches,
+    return {"saliency_head": saliency_head.launches,
+            "saliency_head_up2x": saliency_head.launches_up2x, "int8_mm": int8_mm.launches,
             "tconv": tconv.launches}
 
 
 def _reset_launch_counts() -> None:
     from vinet_tpu_torch.ops import int8_mm, saliency_head, tconv
 
-    saliency_head.launches = int8_mm.launches = tconv.launches = 0
+    saliency_head.launches = saliency_head.launches_up2x = int8_mm.launches = tconv.launches = 0
 
 
 def _map_cc(torch, a, b) -> tuple:
@@ -577,7 +645,7 @@ def phase_int8_model(torch) -> dict:
     check(n_quant == 81, f"{n_quant} quantized convs, expected 81")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the int8 path")
-    for k in ("int8_mm", "tconv"):  # a renamed kernel would be credited 0 ms
+    for k in ("int8_mm", "tconv", "saliency_head"):  # a renamed kernel would be credited 0 ms
         check(profile["kernel_ms"][k] > 0, f"the int8 profile credits no time to {k}")
     check(max_err <= INT8_MAX_TOL and mean_err <= INT8_MEAN_TOL and cc_min >= INT8_CC_MIN,
           f"int8 vs bf16: max {max_err}, mean {mean_err}, cc min {cc_min}")
@@ -635,7 +703,8 @@ def phase_cli(torch) -> dict:
     emit({"phase": "cli", "videos": n_videos, "frames": n_frames, "frame_size": list(size),
           "maps": n_maps, "window_batches": n_videos * -(-n_frames // 16),
           "seconds": seconds, "maps_per_s": n_maps / seconds, "launches": launches})
-    check(launches["saliency_head"] > 0, "the head kernel was not launched on the main path")
+    check(launches["saliency_head_up2x"] > 0,
+          "the fused head kernel was not launched on the main path")
     return launches
 
 
@@ -661,6 +730,7 @@ def main() -> int:
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():
         row["launches"] = (cli_launches if name == "saliency_head" else int8_launches)[name]
+    rows["saliency_head"]["launches_up2x"] = cli_launches["saliency_head_up2x"]
     emit({"kernels": [rows[name] for name in KERNELS]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

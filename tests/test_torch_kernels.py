@@ -82,12 +82,51 @@ def test_head_wrapper_rejects_what_the_kernel_does_not_take(case, error):
         saliency_head._check(*_bad(case))
 
 
+def test_head_up2x_cuda_entry_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        saliency_head.saliency_head_up2x_cuda(*_head_args(1, 2, 8, 8, False))
+
+
+def test_head_up2x_on_cpu_takes_the_plain_version_and_counts_no_launch():
+    """On the CPU the fused entry is the full-resolution plain head on the
+    f32 upsample of z5, bit for bit."""
+    from vinet_tpu_torch.ops.upsample import upsample2x_hw
+
+    z5, w6, b6, w7, b7 = _head_args(2, 2, 5, 7, True)
+    z5 = z5.to(torch.bfloat16)
+    before = (saliency_head.launches, saliency_head.launches_up2x)
+    got = saliency_head.saliency_head_up2x(z5, w6, b6, w7, b7)
+    assert (saliency_head.launches, saliency_head.launches_up2x) == before
+    want = saliency_head.saliency_head_plain(upsample2x_hw(z5.float()), w6, b6, w7, b7)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 10, 14)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("dtype", TypeError), ("layout", ValueError), ("channels", ValueError),
+    ("kt", ValueError), ("w6", ValueError), ("b6", ValueError), ("w7", ValueError),
+    ("device", ValueError), ("height", ValueError),
+])
+def test_head_up2x_wrapper_rejects_what_the_kernel_does_not_take(case, error):
+    """The fused entry validates before it looks for a card."""
+    if case == "height":  # more 8-row tiles than the grid's 65535 (no storage)
+        z, w6, b6, w7, b7 = (None if a is None else a.to("meta")
+                             for a in _head_args(1, 2, 4, 6, True))
+        z = torch.empty((1, 32, 2, 8 * 65535 + 1, 6), device="meta")
+    else:
+        z, w6, b6, w7, b7 = _bad(case)
+    with pytest.raises(error) as info:
+        saliency_head.saliency_head_up2x_cuda(z, w6, b6, w7, b7)
+    assert "needs a CUDA tensor" not in str(info.value)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kt,h,w,bias", [(2, 32, 48, False), (3, 13, 21, True),
                                          (2, 224, 384, False)])
 def test_head_kernel_matches_plain_on_card(cuda, dtype, kt, h, w, bias):
-    """Both versions read the same values and accumulate in f32: 1e-5."""
+    """Both versions read the same values and accumulate in f32 (bf16 z:
+    conv6's weights as bf16 hi + lo on the tensor cores): 1e-5."""
     z, w6, b6, w7, b7 = (None if a is None else a.to(cuda)
                          for a in _head_args(3, kt, h, w, bias))
     z = z.to(dtype)
@@ -97,6 +136,32 @@ def test_head_kernel_matches_plain_on_card(cuda, dtype, kt, h, w, bias):
     assert saliency_head.launches == before + 1
     want = saliency_head.saliency_head_plain(z, w6, b6, w7, b7)
     assert saliency_head.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kt,h,w,bias", [
+    (16, 2, 112, 192, False),  # the clip-32 main path's z5
+    (2, 3, 56, 96, True),  # the clip-48 tail, with b6
+    (3, 2, 13, 21, True),  # ragged tiles; w % 8 != 0: element loads
+    (2, 2, 9, 40, False),  # one 8-wide chunk past a tile
+    (2, 2, 1, 1, True),  # every neighbour clamps to the one pixel
+    (1, 8, 7, 3, False),  # MAX_KT
+])
+def test_head_up2x_kernel_matches_plain_on_card(cuda, dtype, b, kt, h, w, bias):
+    """The fused kernel on z5 against the plain head on the f32 upsample of
+    the same z5: 1e-5. Counts one launch of the head, in the fused mode."""
+    z5, w6, b6, w7, b7 = (None if a is None else a.to(cuda)
+                          for a in _head_args(b, kt, h, w, bias))
+    z5 = z5.to(dtype)
+    before = (saliency_head.launches, saliency_head.launches_up2x)
+    got = saliency_head.saliency_head_up2x(z5, w6, b6, w7, b7)
+    torch.cuda.synchronize()
+    assert (saliency_head.launches, saliency_head.launches_up2x) == (before[0] + 1,
+                                                                     before[1] + 1)
+    want = saliency_head.saliency_head_up2x_plain(z5, w6, b6, w7, b7)
+    assert tuple(got.shape) == (b, 2 * h, 2 * w)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 

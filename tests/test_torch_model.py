@@ -112,9 +112,10 @@ def test_s3d_pyramid_matches_jax(port_model, clip, jax_pyramid):
 
 @pytest.mark.parametrize("phasefold", ["0", "1"])
 def test_decoder_32_matches_jax_tails(phasefold, trees, port_model, jax_pyramid, monkeypatch):
-    """The port's unfolded tail (head kernel path) against the JAX package's
-    unfolded tail (VINET_PHASEFOLD=0: the same op order, through the head
-    reference) and its default phase-folded tail."""
+    """The port's tail (the head fused with the last upsample, the kernel's
+    path) against the JAX package's default phase-folded tail, which also
+    never forms the upsampled z5, and its unfolded tail (VINET_PHASEFOLD=0,
+    through the head reference)."""
     monkeypatch.setenv("VINET_PHASEFOLD", phasefold)
     want, _ = JaxDecoder(jax_decoder_plan(3, 32)).apply(
         trees[0]["decoder"], {}, [jnp.asarray(y) for y in jax_pyramid])
@@ -126,17 +127,36 @@ def test_decoder_32_matches_jax_tails(phasefold, trees, port_model, jax_pyramid,
 
 
 def test_decoder_32_tail_goes_through_head_wrapper(port_model, jax_pyramid, monkeypatch):
+    """The decoder hands the fused head wrapper the coarse z5, contiguous."""
     calls = []
-    plain = head.saliency_head
+    plain = head.saliency_head_up2x
 
-    def spy(z, w6, b6, w7, b7):
-        calls.append((tuple(z.shape), tuple(w6.shape), b6 is None))
-        return plain(z, w6, b6, w7, b7)
+    def spy(z5, w6, b6, w7, b7):
+        calls.append((tuple(z5.shape), z5.is_contiguous(), tuple(w6.shape), b6 is None))
+        return plain(z5, w6, b6, w7, b7)
 
-    monkeypatch.setattr(head, "saliency_head", spy)
+    monkeypatch.setattr(head, "saliency_head_up2x", spy)
     with torch.no_grad():
-        port_model.decoder([torch.from_numpy(ndhwc_to_ncdhw(y)) for y in jax_pyramid])
-    assert calls == [((1, 32, 2, 32, 32), (32, 32, 2, 1, 1), True)]
+        out = port_model.decoder([torch.from_numpy(ndhwc_to_ncdhw(y)) for y in jax_pyramid])
+    assert calls == [((1, 32, 2, 16, 16), True, (32, 32, 2, 1, 1), True)]
+    assert tuple(out.shape) == (1, 32, 32)
+
+
+def test_decoder_32_fused_tail_equals_upsample_then_head(port_model, jax_pyramid):
+    """The fused tail against the full-resolution head on the port's own
+    upsample of z5, in f32: exact up to the order of f32 sums."""
+    dec = port_model.decoder
+    pyr = [torch.from_numpy(ndhwc_to_ncdhw(y)) for y in jax_pyramid]
+    with torch.no_grad():
+        got = dec(pyr)
+        y0, y1, y2, y3 = pyr
+        z = torch.cat([dec.convtsp1(y0), y1], dim=2)
+        z = torch.cat([dec.convtsp2(z), y2], dim=2)
+        z = torch.cat([dec.convtsp3(z), y3], dim=2)
+        z = dec.convtsp4[:6](z)  # conv4, relu, up, conv5, relu, up
+        conv6, conv7 = dec.convtsp4[6], dec.convtsp4[8]
+        want = head.saliency_head(z, conv6.weight, conv6.bias, conv7.weight, conv7.bias)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
 
 
 def test_decoder_plans_match_jax():

@@ -1,6 +1,7 @@
-"""vinet_tpu_torch ops and the saliency head's plain version against
-vinet_tpu on the same numpy inputs, on the CPU. The head's CUDA kernel is held
-against its plain version in tests/test_torch_kernels.py."""
+"""vinet_tpu_torch ops and the saliency head's plain versions (full
+resolution, and fused with the last 2x upsample) against vinet_tpu on the
+same numpy inputs, on the CPU. The head's CUDA kernel is held against its
+plain versions in tests/test_torch_kernels.py."""
 
 import numpy as np
 import pytest
@@ -68,6 +69,37 @@ def test_head_plain_ragged_hw_matches_jax_reference(h, w, bias):
     got = saliency_head.saliency_head(*_to_port(*args))
     print(f"max|err| vs reference {np.abs(got.numpy() - ref).max():.3g}")
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+# (B, kt, h, w, b6) of the coarse z5: the clip-32 tail (kt 2, no bias), the
+# clip-48 tail (kt 3 with bias), and a ragged w; the Pallas kernel needs the
+# upsampled H, 2h, to be a multiple of 8
+@pytest.mark.parametrize("b,kt,h,w,bias", [(2, 2, 8, 12, False), (1, 3, 4, 8, True),
+                                           (1, 2, 4, 7, True)])
+def test_head_up2x_matches_pallas_on_the_jax_upsample(b, kt, h, w, bias):
+    """The fused head on the coarse z5 against the Pallas head (interpret
+    mode) on the JAX package's upsample of z5: 1e-5."""
+    z5, w6, b6, w7, b7 = _head_inputs(b, kt, h, w, bias, seed=2)
+    z5 = np.maximum(z5, 0)  # relu(conv5)
+    jargs = [None if a is None else jnp.asarray(a) for a in (w6, b6, w7, b7)]
+    want = np.asarray(saliency_head_pallas(jax_upsample2x_hw(jnp.asarray(z5)), *jargs,
+                                           interpret=True))
+    got = saliency_head.saliency_head_up2x(*_to_port(z5, w6, b6, w7, b7))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, 2 * h, 2 * w)
+    print(f"max|err| vs pallas {np.abs(got.numpy() - want).max():.3g}")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,bias", [(7, 5, True), (1, 3, False), (3, 1, True)])
+def test_head_up2x_small_ragged_matches_jax_reference(h, w, bias):
+    """Grids smaller than the upsample's reach, against the JAX reference
+    head on the JAX upsample: 1e-5."""
+    z5, w6, b6, w7, b7 = _head_inputs(2, 2, h, w, bias, seed=3)
+    jargs = [None if a is None else jnp.asarray(a) for a in (w6, b6, w7, b7)]
+    want = np.asarray(saliency_head_reference(jax_upsample2x_hw(jnp.asarray(z5)), *jargs))
+    got = saliency_head.saliency_head_up2x(*_to_port(z5, w6, b6, w7, b7))
+    assert tuple(got.shape) == (2, 2 * h, 2 * w)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_upsample2x_hw_matches_jax():

@@ -11,7 +11,8 @@ Every TPU kernel of the repo has a CUDA C++ counterpart for ``sm_90a`` in
 version beside it for CPU tensors:
 
 - ``csrc/saliency_head.cu`` (``ops/saliency_head.py``) replaces
-  ``vinet_tpu/ops/pallas_head.py:54`` ``saliency_head_pallas``;
+  ``vinet_tpu/ops/pallas_head.py:54`` ``saliency_head_pallas``; the decoder
+  runs its mode fused with the last 2x upsample (``saliency_head_up2x``);
 - ``csrc/int8_mm.cu`` (``ops/int8_mm.py``) replaces
   ``scripts/exp_int8_mxu_r5.py:64`` ``pallas_mm``;
 - ``csrc/tconv.cu`` (``ops/tconv.py``) replaces

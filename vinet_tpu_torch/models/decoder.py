@@ -4,10 +4,12 @@
 names (``convtsp1.0`` ... ``convtsp4.8``). Each stage is Conv3d + ReLU + 2x
 upsample; skips concatenate on the TIME axis (z first, then the skip).
 
-The tail is the unfolded one: conv5 -> ReLU -> upsample, then for plans with
-conv6 the fused head (``ops/saliency_head.py``: the CUDA kernel on the card,
-its plain version on the CPU), cast to the compute dtype; for plans without
-conv6, conv7 -> sigmoid.
+The tail runs conv4 -> ReLU -> upsample -> conv5 -> ReLU; then, for plans
+with conv6, the head fused with the last 2x upsample
+(``ops/saliency_head.py::saliency_head_up2x``: the CUDA kernel on the card,
+its plain version on the CPU) on that coarse z5, cast to the compute dtype,
+so the upsampled z5 is never formed, as in the JAX package's phase-folded
+tail; for plans without conv6, upsample -> conv7 -> sigmoid.
 """
 
 from __future__ import annotations
@@ -97,11 +99,11 @@ class Decoder(nn.Module):
         z = self.convtsp3(z)
         if 3 in skips:
             z = torch.cat([z, y3.to(z.dtype)], dim=2)
-        z = self.convtsp4[:6](z)  # conv4, relu, up, conv5, relu, up
+        z = self.convtsp4[:5](z)  # conv4, relu, up, conv5, relu
         if self.plan.conv6 is not None:
             conv6, conv7 = self.convtsp4[6], self.convtsp4[8]
-            out = head.saliency_head(z.contiguous(), conv6.weight, conv6.bias,
-                                     conv7.weight, conv7.bias)
+            out = head.saliency_head_up2x(z.contiguous(), conv6.weight, conv6.bias,
+                                          conv7.weight, conv7.bias)
             return out.to(z.dtype)
-        z = self.convtsp4[6:](z)  # conv7, sigmoid
+        z = self.convtsp4[5:](z)  # up, conv7, sigmoid
         return z[:, 0, 0]
