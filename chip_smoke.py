@@ -37,9 +37,26 @@ fails. Phases, each printing one JSON line:
    just after;
 6. cli (the bf16 main path): ``vinet_tpu_torch.cli.generate_result`` end to
    end on a synthetic DHF1K-layout directory; the launch counts are set to 0
-   just before and read just after.
+   just before and read just after;
+7. phasefold: conv after a 2x upsample both ways, folded
+   (``ops/phasefold.py``) and upsample then conv, at the decoder's conv5
+   and the streaming decode's conv3/conv4 taps (window batch 16, 224 x
+   384): f32 check, bf16 times with cuDNN's heuristics and its benchmark
+   mode; the decoder's tail once;
+8. streaming: ``generate_result --streaming`` on synthetic 160-frame videos
+   at 224 x 384, its maps/s; the device time of one 128-frame chunk by part
+   (timeline, dense front, window decode) and by kernel; card bf16 against
+   card f32 maps, and card f32 against CPU f32 at a reduced size;
+9. live: ``LiveStreamingPredictor`` at micro 16 over one stream: ms a feed,
+   maps/s and lag in frames, bf16; in f32 its interior maps against the
+   card's chunked maps;
+10. serve: ``vinet_tpu_torch.cli.serve --streams 4 --live_micro 32``, its
+   maps/s, and the device time of one serve step (an advance of 4 streams
+   and one decode of 4 x 32 windows).
 
-Then one line lists every kernel with its numbers, and the last line is
+Phases 6-10 set the launch counts to 0 before their path, read them after,
+and fail unless the fused head launched. Then one line lists every kernel
+with its numbers (the head's launches on every path), and the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -78,6 +95,15 @@ INT8_MAX_TOL, INT8_MEAN_TOL, INT8_CC_MIN = 0.1, 0.01, 0.97
 # and then flips an int8 level; measured on the same card: max 0.0034, mean
 # 2.3e-6
 INT8_CPU_MAX_TOL, INT8_CPU_MEAN_TOL = 0.01, 1e-5
+# upsample_trilinear3d launches in a window batch: conv1-3's; conv5 folds the
+# fourth (ops/phasefold.py), the head the fifth
+UPSAMPLE_LAUNCHES = 3
+# folded conv vs upsample + conv in f32 on the card: the same f32 products
+# summed in other orders (up to 17,280 a sum), relative to the largest output
+FOLD_TOL = 1e-5
+# live vs chunked interior maps in f32 on the card: the same convolutions over
+# the same positions, at other batch and time extents (vinet_tpu's own bound)
+LIVE_MAX_TOL, LIVE_MEDIAN_TOL = 1e-4, 1e-6
 
 
 def emit(obj) -> None:
@@ -457,38 +483,52 @@ def phase_gemm_kernels(torch) -> dict:
     return rows
 
 
-def profile_window_batch(torch, model, x) -> dict:
-    """The model's FLOP count (PyTorch's operators; the hand-written kernels'
-    operations are not in it) and where the device time of one window batch
-    goes, by kernel, from torch.profiler. ``kernel_ms`` sums the device time
-    of each hand-written kernel (int8_mm's and tconv's instances of the
-    shared GEMM core by their A loaders, Int8MmA and TconvA);
-    ``upsample_trilinear3d_launches`` counts the decoder's upsamples."""
+def profile_device(torch, fn) -> dict:
+    """Where the device time of one fn() goes, by kernel, from torch.profiler:
+    device time against wall time, each hand-written kernel's time
+    (``kernel_ms``: int8_mm's and tconv's instances of the shared GEMM core
+    by their A loaders, Int8MmA and TconvA), the upsample launches, the ten
+    costliest kernels and the eight costliest convolutions by input and
+    weight shape."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from torch.utils.flop_counter import FlopCounterMode
 
-    with FlopCounterMode(display=False) as flops:
-        model(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
-        model(x)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                      key=lambda k: -k[1])
     device_ms = sum(ms for _, ms, _ in kernels)
-    return {"flop_per_clip": flops.get_total_flops() / x.shape[0],
-            "upsample_trilinear3d_launches": sum(n for k, _, n in kernels
+    convs = sorted(((str(e.input_shapes[:2])[:100], e.device_time_total / 1e3, e.count)
+                    for e in prof.key_averages(group_by_input_shape=True)
+                    if e.key == "aten::convolution"), key=lambda k: -k[1])
+    return {"upsample_trilinear3d_launches": sum(n for k, _, n in kernels
                                                  if "upsample_trilinear3d" in k),
             "profiled_wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
+            "device_idle_share": 1 - device_ms / wall_ms,
             "kernel_ms": {name: sum(ms for k, ms, _ in kernels if marker in k)
                           for name, marker in (("saliency_head", "saliency_head"),
                                                ("int8_mm", "Int8MmA"), ("tconv", "TconvA"))},
-            "top_kernels": [[k[:80], ms, n] for k, ms, n in kernels[:10]]}
+            "top_kernels": [[k[:80], ms, n] for k, ms, n in kernels[:10]],
+            "top_convolutions": [list(c) for c in convs[:8]]}
+
+
+def profile_window_batch(torch, model, x) -> dict:
+    """The model's FLOP count (PyTorch's operators; the hand-written kernels'
+    operations are not in it) and where the device time of one window batch
+    goes (``profile_device``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as flops:
+        model(x)
+    return {"flop_per_clip": flops.get_total_flops() / x.shape[0],
+            **profile_device(torch, lambda: model(x))}
 
 
 def phase_model(torch) -> None:
@@ -550,9 +590,9 @@ def phase_model(torch) -> None:
     check(cpu_err < CPU_TOL, f"card f32 vs CPU f32: max|err| {cpu_err}")
     check(head.launches_up2x > launches0[1], "the model's head did not launch the fused kernel")
     check(profile["kernel_ms"]["saliency_head"] > 0, "the bf16 profile credits no time to the head")
-    check(profile["upsample_trilinear3d_launches"] == 4,
+    check(profile["upsample_trilinear3d_launches"] == UPSAMPLE_LAUNCHES,
           f"{profile['upsample_trilinear3d_launches']} upsample launches in the bf16 window "
-          "batch, expected 4 (the last is fused into the head)")
+          f"batch, expected {UPSAMPLE_LAUNCHES} (conv5 folds one, the head another)")
 
 
 def _launch_counts() -> dict:
@@ -654,29 +694,48 @@ def phase_int8_model(torch) -> dict:
     return launches
 
 
+def _video_frames(rng, n_frames: int, size: tuple):
+    """(n_frames, H, W, 3) uint8: a bright blob crossing a noisy frame."""
+    import numpy as np
+
+    h, w = size
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = np.empty((n_frames, h, w, 3), np.uint8)
+    for f in range(n_frames):
+        cy, cx = h / 2, w * (0.2 + 0.6 * f / n_frames)
+        blob = 175.0 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 40.0**2))
+        frames[f] = np.clip(rng.integers(0, 80, (h, w, 3)) + blob[..., None], 0, 255)
+    return frames
+
+
 def _write_videos(root: str, n_videos: int, n_frames: int, size: tuple) -> None:
     import numpy as np
     from PIL import Image
 
     rng = np.random.default_rng(0)
-    h, w = size
-    yy, xx = np.mgrid[0:h, 0:w]
     for v in range(n_videos):
         d = os.path.join(root, "%03d" % (v + 1), "images")
         os.makedirs(d)
-        for f in range(n_frames):
-            cy, cx = h / 2, w * (0.2 + 0.6 * f / n_frames)
-            blob = 175.0 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 40.0**2))
-            img = rng.integers(0, 80, (h, w, 3)) + blob[..., None]
-            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
-                os.path.join(d, "%04d.png" % (f + 1)))
+        for f, img in enumerate(_video_frames(rng, n_frames, size)):
+            Image.fromarray(img).save(os.path.join(d, "%04d.png" % (f + 1)))
+
+
+def _check_maps_written(data: str, out: str, n_videos: int, size: tuple) -> None:
+    import numpy as np
+    from PIL import Image
+
+    for v in range(n_videos):
+        name = "%03d" % (v + 1)
+        frames = sorted(os.listdir(os.path.join(data, name, "images")))
+        written = sorted(os.listdir(os.path.join(out, name)))
+        check(written == frames, f"video {name}: {len(written)} maps for {len(frames)} frames")
+        m = np.asarray(Image.open(os.path.join(out, name, written[-1])))
+        check(m.shape == size and m.dtype == np.uint8 and m.min() == 0 and m.max() == 255,
+              f"video {name}: map {m.shape} {m.dtype} [{m.min()}, {m.max()}]")
 
 
 def phase_cli(torch) -> dict:
     """The main path: the port's generate_result CLI on the card."""
-    import numpy as np
-    from PIL import Image
-
     from vinet_tpu_torch.cli.generate_result import main as generate_main
 
     n_videos, n_frames, size = 2, 80, (360, 640)
@@ -691,14 +750,7 @@ def phase_cli(torch) -> dict:
         seconds = time.perf_counter() - t0
         launches = _launch_counts()
         check(rc == 0, f"generate_result returned {rc}")
-        for v in range(n_videos):
-            name = "%03d" % (v + 1)
-            frames = sorted(os.listdir(os.path.join(data, name, "images")))
-            written = sorted(os.listdir(os.path.join(out, name)))
-            check(written == frames, f"video {name}: {len(written)} maps for {len(frames)} frames")
-            m = np.asarray(Image.open(os.path.join(out, name, written[-1])))
-            check(m.shape == size and m.dtype == np.uint8 and m.min() == 0 and m.max() == 255,
-                  f"video {name}: map {m.shape} {m.dtype} [{m.min()}, {m.max()}]")
+        _check_maps_written(data, out, n_videos, size)
     n_maps = n_videos * n_frames  # one window per map, flipped for the first 31
     emit({"phase": "cli", "videos": n_videos, "frames": n_frames, "frame_size": list(size),
           "maps": n_maps, "window_batches": n_videos * -(-n_frames // 16),
@@ -706,6 +758,338 @@ def phase_cli(torch) -> dict:
     check(launches["saliency_head_up2x"] > 0,
           "the fused head kernel was not launched on the main path")
     return launches
+
+
+def _fixture_vinet():
+    """ViNet(3, 32) with the fixture weights, on the CPU, unprepared (the
+    predictors fold, cast and move it)."""
+    from vinet_tpu_torch.io.weights import load_weights
+    from vinet_tpu_torch.models import ViNet
+
+    model = ViNet(3, 32)
+    model.load_state_dict(load_weights(FIXTURE), strict=True)
+    return model
+
+
+def _require_head(launches: dict, path: str) -> None:
+    check(launches["saliency_head_up2x"] > 0, f"the fused head kernel was not launched on {path}")
+
+
+# conv-after-upsample geometries of a window batch of 16 at 224 x 384: (x,
+# w, stride_t); conv3's and conv4's up-mixing taps in the streaming decode,
+# and conv5 in every decoder
+FOLD_CASES = {"conv3_taps": ((16, 480, 4, 14, 24), (192, 480, 4, 3, 3), 1),
+              "conv4_taps": ((16, 192, 4, 28, 48), (64, 192, 4, 3, 3), 1),
+              "conv5": ((16, 64, 4, 56, 96), (32, 64, 2, 3, 3), 2)}
+
+
+def phase_phasefold(torch) -> dict:
+    """Conv after a 2x upsample, both routes: folded (``ops/phasefold.py``,
+    the weights folded beforehand, as the decoder keeps them, and for conv5
+    also folded on every call) and upsample then conv. Per geometry an f32 check
+    (max|err| over the largest output) and bf16 times (folded, upsample,
+    upsample, folded), with cuDNN's heuristics and again with its benchmark
+    mode, and the bound of the conv's work; then the decoder's tail on a
+    bf16 z4 with the counts at 0."""
+    import torch.nn.functional as F
+
+    from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x, conv_after_up2x
+    from vinet_tpu_torch.ops.upsample import upsample2x_hw
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = {}
+    with torch.inference_mode():
+        for name, (xs, ws, st) in FOLD_CASES.items():
+            x = torch.relu(torch.randn(xs, generator=g, device="cuda"))
+            w = torch.randn(ws, generator=g, device="cuda") / (ws[1] * ws[2] * 9) ** 0.5
+
+            def routes(x, w):
+                fold = FoldedConvUp2x(w)
+                r = {"folded": lambda: fold(x, stride_t=st),
+                     "upsample_then_conv": lambda: F.conv3d(upsample2x_hw(x), w,
+                                                            stride=(st, 1, 1), padding=(0, 1, 1))}
+                if name == "conv5":
+                    r["folded_per_call"] = lambda: conv_after_up2x(x, w, stride_t=st)
+                return r
+
+            f32 = {k: fn() for k, fn in routes(x, w).items()}
+            ref = f32["upsample_then_conv"]
+            err = float((f32["folded"] - ref).abs().max() / ref.abs().max())
+            out_shape = list(f32["folded"].shape)
+            del f32
+            bf16 = routes(x.bfloat16(), w.bfloat16())
+            ms = {}
+            for benchmark in (False, True):
+                torch.backends.cudnn.benchmark = benchmark
+                key = "cudnn_benchmark" if benchmark else "cudnn_default"
+                ms[key] = {k: [] for k in bf16}
+                order = [k for k in bf16 if k != "upsample_then_conv"]
+                for k in order + ["upsample_then_conv"] * 2 + order[::-1]:
+                    ms[key][k].append(cuda_ms(bf16[k], 20))
+            torch.backends.cudnn.benchmark = False
+            out_elems = 1
+            for d in out_shape:
+                out_elems *= d
+            bytes_moved = (x.numel() + out_elems + w.numel()) * 2
+            bound_ms, bound_by = bound(bytes_moved, 2 * out_elems * ws[1] * ws[2] * 9,
+                                       torch.bfloat16)
+            cases[name] = {"x": list(xs), "w": list(ws), "stride_t": st, "out": out_shape,
+                           "f32_max_rel_err": err, "bf16_ms": ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by}
+            del x, w, bf16
+            torch.cuda.empty_cache()
+
+        dec = _fixture_vinet().decoder.to("cuda", torch.bfloat16).eval()
+        z4 = torch.relu(torch.randn(FOLD_CASES["conv5"][0], generator=g, device="cuda"))
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        maps = dec.tail(z4.bfloat16())
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+    rec = {"phase": "phasefold", "cases": cases, "tol": FOLD_TOL,
+           "routes_taken": {"decoder_conv5": "folded", "streaming_conv3_taps": "folded",
+                            "streaming_conv4_taps": "upsample_then_conv"},
+           "tail_maps": list(maps.shape), "launches": launches}
+    emit(rec)
+    for name, c in cases.items():
+        check(c["f32_max_rel_err"] <= FOLD_TOL,
+              f"{name}: folded vs upsample + conv in f32: {c['f32_max_rel_err']}")
+    check(tuple(maps.shape) == (16, 224, 384) and bool(torch.isfinite(maps).all()),
+          "decoder tail output")
+    _require_head(launches, "the decoder's tail")
+    return rec
+
+
+def _part_times(torch, parts) -> dict:
+    """Run parts [(name, fn)] in order with a CUDA event between each; the
+    device-timeline ms of each (queued back to back, so a part the host
+    cannot feed fast enough shows its gaps)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
+    ev[0].record()
+    for i, (_, fn) in enumerate(parts):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return {name: ev[i].elapsed_time(ev[i + 1]) for i, (name, _) in enumerate(parts)}
+
+
+def _maps_err(a: dict, b: dict, frames) -> tuple:
+    """(max, mean) over frames of |a - b| for two {frame: map} results."""
+    import numpy as np
+
+    d = [np.abs(a[i].astype(np.float64) - b[i]) for i in frames]
+    return float(max(x.max() for x in d)), float(np.mean([x.mean() for x in d]))
+
+
+def phase_streaming(torch) -> dict:
+    """--streaming end to end, one chunk's device time, and its accuracy."""
+    import numpy as np
+
+    from vinet_tpu_torch.cli.generate_result import main as generate_main
+    from vinet_tpu_torch.inference import StreamingPredictor
+    from vinet_tpu_torch.inference.streaming import dense_decoder_front, streaming_pyramid
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+
+    torch.backends.cudnn.allow_tf32 = False
+    n_videos, n_frames, size = 2, 160, (224, 384)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        _write_videos(data, n_videos, n_frames, size)
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = generate_main(["--path_indata", data, "--save_path", out, "--streaming",
+                            "--chunk", "128", "--file_weight", FIXTURE, "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        check(rc == 0, f"generate_result --streaming returned {rc}")
+        _check_maps_written(data, out, n_videos, size)
+
+    # one 128-frame chunk: its 97 window starts in 7 batches of 16
+    pred = StreamingPredictor(_fixture_vinet(), chunk=128, batch=16, device="cuda")
+    frames = torch.from_numpy(_video_frames(np.random.default_rng(1), 128, size)).cuda()[None]
+    batches = [list(range(lo, min(97, lo + 16))) for lo in range(0, 97, 16)]
+    with torch.inference_mode():
+        state = {}
+
+        def timeline():
+            x = device_preprocess(frames).to(pred.dtype).permute(0, 4, 1, 2, 3).contiguous()
+            state["tl"] = streaming_pyramid(pred.model.backbone, x)
+
+        def front():
+            state["dense"] = dense_decoder_front(pred.model.decoder, state["tl"])
+
+        def decode():
+            state["maps"] = [pred._decode(state["tl"], state["dense"], pred._starts(b))[: len(b)]
+                             for b in batches]
+
+        def post():
+            for m in state["maps"]:
+                pred._post(m, size, True).cpu()
+
+        parts = [("timeline", timeline), ("dense_front", front), ("window_decode", decode),
+                 ("post", post)]
+        _part_times(torch, parts)  # warm-up
+        part_ms = _part_times(torch, parts)
+        profile = profile_device(torch, lambda: _part_times(torch, parts))
+
+    # accuracy: card bf16 vs card f32, and card f32 vs CPU f32 at a reduced size
+    video = _video_frames(np.random.default_rng(2), 96, size)
+    got16 = dict(pred.predict_video(video))
+    got32 = dict(StreamingPredictor(_fixture_vinet(), chunk=128, batch=16, dtype=torch.float32,
+                                    device="cuda").predict_video(video))
+    bf16_max, bf16_mean = _maps_err(got16, got32, range(96))
+    small = _video_frames(np.random.default_rng(3), 72, (64, 64))
+    card = dict(StreamingPredictor(_fixture_vinet(), chunk=72, batch=16, dtype=torch.float32,
+                                   device="cuda").predict_video(small))
+    cpu = dict(StreamingPredictor(_fixture_vinet(), chunk=72, batch=16, dtype=torch.float32,
+                                  device="cpu").predict_video(small))
+    cpu_max, _ = _maps_err(card, cpu, range(72))
+    rec = {"phase": "streaming", "videos": n_videos, "frames": n_frames,
+           "frame_size": list(size), "chunk": 128, "window_batch": 16, "dtype": "bfloat16",
+           "seconds": seconds, "maps_per_s": n_videos * n_frames / seconds,
+           "launches": launches, "chunk_part_ms": part_ms,
+           "chunk_maps_per_s": 97 / sum(part_ms.values()) * 1e3, "chunk_profile": profile,
+           "bf16_vs_f32_max_abs_err": bf16_max, "bf16_vs_f32_mean_abs_err": bf16_mean,
+           "bf16_tol": [BF16_MAX_TOL, BF16_MEAN_TOL],
+           "card_f32_vs_cpu_f32_max_abs_err": cpu_max, "cpu_input": [72, 64, 64, 3],
+           "cpu_tol": CPU_TOL}
+    emit(rec)
+    check(bf16_max <= BF16_MAX_TOL and bf16_mean <= BF16_MEAN_TOL,
+          f"streaming bf16 vs f32: max {bf16_max}, mean {bf16_mean}")
+    check(cpu_max < CPU_TOL, f"streaming card f32 vs CPU f32: max|err| {cpu_max}")
+    check(profile["kernel_ms"]["saliency_head"] > 0, "the chunk profile credits no time to the head")
+    _require_head(launches, "the streaming path")
+    return rec
+
+
+def phase_live(torch) -> dict:
+    """The live server at micro 16 over one stream of 224 x 384 frames."""
+    import numpy as np
+
+    from vinet_tpu_torch.inference import LiveStreamingPredictor, StreamingPredictor
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    torch.backends.cudnn.allow_tf32 = False
+    size, n, micro = (224, 384), 240, 16
+    frames = _video_frames(np.random.default_rng(4), n, size)
+
+    # f32: live interior maps against the card's chunked maps; one chunk
+    # covers the stream (no seam) and is the live warm-up's flipped chunk
+    chunked = dict(StreamingPredictor(_fixture_vinet(), chunk=n, batch=16,
+                                      dtype=torch.float32, device="cuda").predict_video(frames))
+    live32 = LiveStreamingPredictor(_fixture_vinet(), micro=micro, span=n + 8, batch=16,
+                                    dtype=torch.float32, device="cuda", warmup_chunk=n)
+    got = [m for lo in range(0, n, micro) for m in live32.feed(frames[lo: lo + micro])]
+    got += list(live32.flush())
+    check([i for i, _ in got] == list(range(n)), "live: frames emitted out of order or missed")
+    live_maps = dict(got)
+    # interior: past the stream start (zero tails against zero padding) and
+    # before the flush tail (the repeated last frame)
+    d = [float(np.abs(live_maps[i] - chunked[i]).max()) for i in range(96, n - 70)]
+    warm = max(float(np.abs(live_maps[i] - chunked[i]).max()) for i in range(31))
+    del live32
+
+    # bf16: ms a feed, maps/s, lag, with the counts at 0 before the run
+    live = LiveStreamingPredictor(_fixture_vinet(), micro=micro, span=160, batch=16,
+                                  device="cuda")
+    for lo in range(0, n, micro):  # warm-up stream: cuDNN picks its algorithms
+        list(live.feed(frames[lo: lo + micro]))
+    list(live.flush())
+    live.reset()
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    feed_ms, lags = [], []
+    t0 = time.perf_counter()
+    for lo in range(0, n, micro):
+        t1 = time.perf_counter()
+        for i, _ in live.feed(frames[lo: lo + micro]):
+            lags.append(lo + micro - 1 - i)  # frames that arrived after frame i
+        feed_ms.append((time.perf_counter() - t1) * 1e3)
+    n_flushed = len(list(live.flush()))
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    steady = lags[31:]  # after the warm-up pass's burst
+    with torch.inference_mode():
+        x = torch.from_numpy(frames[None, :micro]).cuda()
+        starts = live._starts(list(range(16)))
+        shifted = [(live._bufs[k], micro // r) for k, r in (
+            ("y3", 2), ("y2", 2), ("y1", 4), ("y0", 8), ("c1u", 8), ("c2y", 4), ("c3y", 2),
+            ("c4y", 2))]
+
+        def shift():  # the rolling buffers' shift-in of one microbatch
+            for b, k in shifted:
+                torch.cat([b[:, :, k:], b[:, :, -k:]], dim=2)
+
+        part_ms = {"advance": cuda_ms(lambda: live._advance(x), 10),
+                   "window_decode": cuda_ms(lambda: live._decode(*live._views(), starts), 10),
+                   "rolling_shift": cuda_ms(shift, 10)}
+    rec = {"phase": "live", "frames": n, "frame_size": list(size), "micro": micro, "batch": 16,
+           "span": 160, "dtype": "bfloat16", "seconds": seconds, "maps_per_s": n / seconds,
+           "feed_ms": {"median": float(np.median(feed_ms)), "max": max(feed_ms),
+                       "steady_mean": float(np.mean(feed_ms[8:]))},
+           "lag_frames": {"median": float(np.median(steady)), "max": max(steady),
+                          "min": min(steady)},
+           "flushed_maps": n_flushed, "launches": launches, "part_ms": part_ms,
+           "f32_interior_vs_chunked_max_abs_err": max(d),
+           "f32_interior_vs_chunked_median_abs_err": float(np.median(d)),
+           "f32_warmup_vs_chunked_max_abs_err": warm,
+           "tol": [LIVE_MAX_TOL, LIVE_MEDIAN_TOL]}
+    emit(rec)
+    check(max(d) < LIVE_MAX_TOL and float(np.median(d)) < LIVE_MEDIAN_TOL and warm < 1e-5,
+          f"live vs chunked interior: max {max(d)}, median {np.median(d)}, warm-up {warm}")
+    _require_head(launches, "the live path")
+    return rec
+
+
+def phase_serve(torch) -> dict:
+    """cli.serve --streams 4 --live_micro 32, and one serve step's device time."""
+    import numpy as np
+
+    from vinet_tpu_torch.cli.generate_result import live_span
+    from vinet_tpu_torch.cli.serve import main as serve_main
+    from vinet_tpu_torch.inference import MultiLiveServer
+
+    streams, micro, n_frames, size = 4, 32, 160, (224, 384)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        _write_videos(data, streams, n_frames, size)
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = serve_main(["--path_indata", data, "--save_path", out, "--streams", str(streams),
+                         "--live_micro", str(micro), "--file_weight", FIXTURE, "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        check(rc == 0, f"serve returned {rc}")
+        _check_maps_written(data, out, streams, size)
+
+    server = MultiLiveServer(_fixture_vinet(), streams=streams, micro=micro, batch=micro,
+                             span=live_span(32, micro), device="cuda")
+    frames = np.stack([_video_frames(np.random.default_rng(10 + s), 128, size)
+                       for s in range(streams)])
+    for lo in range(0, 128, micro):
+        list(server.feed(frames[:, lo: lo + micro]))
+    with torch.inference_mode():
+        x = torch.from_numpy(frames[:, :micro]).cuda()
+        starts = server._starts(list(range(micro)))
+        parts = [("advance", lambda: server._advance(x)),
+                 ("window_decode", lambda: server._decode(*server._views(), starts))]
+        _part_times(torch, parts)
+        part_ms = _part_times(torch, parts)
+        profile = profile_device(torch, lambda: _part_times(torch, parts))
+    rec = {"phase": "serve", "streams": streams, "live_micro": micro, "frames": n_frames,
+           "frame_size": list(size), "dtype": "bfloat16", "seconds": seconds,
+           "maps_per_s": streams * n_frames / seconds, "launches": launches,
+           "step_part_ms": part_ms,
+           "step_maps_per_s": streams * micro / sum(part_ms.values()) * 1e3,
+           "step_profile": profile}
+    emit(rec)
+    check(profile["kernel_ms"]["saliency_head"] > 0, "the serve step credits no time to the head")
+    _require_head(launches, "the serve path")
+    return rec
 
 
 def main() -> int:
@@ -726,11 +1110,18 @@ def main() -> int:
     phase_model(torch)
     int8_launches = phase_int8_model(torch)
     cli_launches = phase_cli(torch)
+    paths = {"cli": cli_launches}
+    for name, phase in (("phasefold_tail", phase_phasefold), ("streaming", phase_streaming),
+                        ("live", phase_live), ("serve", phase_serve)):
+        paths[name] = phase(torch)["launches"]
+        torch.cuda.empty_cache()
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():
         row["launches"] = (cli_launches if name == "saliency_head" else int8_launches)[name]
     rows["saliency_head"]["launches_up2x"] = cli_launches["saliency_head_up2x"]
+    rows["saliency_head"]["launches_by_path"] = {p: c["saliency_head_up2x"]
+                                                 for p, c in paths.items()}
     emit({"kernels": [rows[name] for name in KERNELS]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -414,3 +414,78 @@ def test_int8_conv_routes_on_card_match_the_exact_cpu_route(cuda, kernel, stride
     assert (int8_mm.launches, tconv.launches) == (before[0] + (not temporal),
                                                   before[1] + temporal)
     assert torch.equal(got.cpu(), want)
+
+
+# ------------------------------------------------- the serving paths on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_up2x_with_identity_conv6_at_t1_matches_plain_on_card(cuda, dtype):
+    """The tail of the plans without conv6: the fused kernel with conv6 the
+    identity (kt 1, no b6) on z5 with T 1 equals the plain version and
+    sigmoid(conv7(up(z5))): 1e-5."""
+    from vinet_tpu_torch.ops.upsample import upsample2x_hw
+
+    z5, _, _, w7, b7 = (None if a is None else a.to(cuda) for a in _head_args(4, 1, 16, 24, False))
+    z5 = z5.to(dtype)
+    w6 = torch.eye(32, device=cuda).reshape(32, 32, 1, 1, 1)
+    before = saliency_head.launches_up2x
+    got = saliency_head.saliency_head_up2x(z5, w6, None, w7, b7)
+    torch.cuda.synchronize()
+    assert saliency_head.launches_up2x == before + 1
+    want = saliency_head.saliency_head_up2x_plain(z5, w6, None, w7, b7)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    direct = torch.sigmoid(torch.nn.functional.conv3d(upsample2x_hw(z5.float()), w7, b7))[:, 0, 0]
+    torch.testing.assert_close(got, direct, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_conv_after_up2x_bf16_on_card_matches_the_cpu(cuda):
+    """conv5's folded route in bf16 (cuDNN on the card, the CPU's conv
+    there): each output is within one bf16 rounding of the f32 sum of the
+    same rounded weights, plus one on the border strips, so the two stay
+    within 2^-6 of the sum of |terms|."""
+    from vinet_tpu_torch.ops.phasefold import conv_after_up2x
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(np.maximum(rng.standard_normal((2, 64, 4, 14, 24)), 0).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((32, 64, 2, 3, 3)) / np.sqrt(64 * 18))
+                         .astype(np.float32))
+    x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    got = conv_after_up2x(x16.to(cuda), w16.to(cuda), stride_t=2)
+    torch.cuda.synchronize()
+    want = conv_after_up2x(x16, w16, stride_t=2)
+    scale = conv_after_up2x(x16.float().abs(), w16.float().abs(), stride_t=2)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (2, 32, 2, 28, 48)
+    err = (got.cpu().float() - want.float()).abs()
+    assert bool((err <= 2.0 ** -6 * scale).all()), float((err / scale).max())
+
+
+@pytest.mark.gpu
+def test_streaming_predictor_on_card_matches_the_cpu(cuda):
+    """One small --streaming video (64 frames of 32 x 32, clip 32, f32,
+    seeded random weights) on the card and on the CPU: maps within 2e-3,
+    the card's through the fused head kernel."""
+    import copy
+
+    from vinet_tpu_torch.inference import StreamingPredictor
+    from vinet_tpu_torch.models import ViNet
+
+    torch.manual_seed(0)
+    model = ViNet(3, 32)
+    frames = np.random.default_rng(6).integers(0, 256, (64, 32, 32, 3), dtype=np.uint8)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = dict(StreamingPredictor(copy.deepcopy(model), chunk=64, batch=8,
+                                      dtype=torch.float32, device="cpu").predict_video(frames))
+        before = saliency_head.launches_up2x
+        card = dict(StreamingPredictor(model, chunk=64, batch=8, dtype=torch.float32,
+                                       device=cuda).predict_video(frames))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert saliency_head.launches_up2x > before
+    assert sorted(card) == sorted(cpu) == list(range(64))
+    err = max(float(np.abs(card[i] - cpu[i]).max()) for i in range(64))
+    assert err < 2e-3, err

@@ -144,7 +144,11 @@ def test_decoder_32_tail_goes_through_head_wrapper(port_model, jax_pyramid, monk
 
 def test_decoder_32_fused_tail_equals_upsample_then_head(port_model, jax_pyramid):
     """The fused tail against the full-resolution head on the port's own
-    upsample of z5, in f32: exact up to the order of f32 sums."""
+    upsample of z5 (conv5 folded with conv4's upsample, as the decoder runs
+    it), in f32: exact up to the order of f32 sums."""
+    from vinet_tpu_torch.ops.phasefold import conv_after_up2x
+    from vinet_tpu_torch.ops.upsample import upsample2x_hw
+
     dec = port_model.decoder
     pyr = [torch.from_numpy(ndhwc_to_ncdhw(y)) for y in jax_pyramid]
     with torch.no_grad():
@@ -153,7 +157,8 @@ def test_decoder_32_fused_tail_equals_upsample_then_head(port_model, jax_pyramid
         z = torch.cat([dec.convtsp1(y0), y1], dim=2)
         z = torch.cat([dec.convtsp2(z), y2], dim=2)
         z = torch.cat([dec.convtsp3(z), y3], dim=2)
-        z = dec.convtsp4[:6](z)  # conv4, relu, up, conv5, relu, up
+        z = dec.convtsp4[:2](z)  # conv4, relu
+        z = upsample2x_hw(torch.relu(conv_after_up2x(z, dec.convtsp4[3].weight, stride_t=2)))
         conv6, conv7 = dec.convtsp4[6], dec.convtsp4[8]
         want = head.saliency_head(z, conv6.weight, conv6.bias, conv7.weight, conv7.bias)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)

@@ -20,4 +20,11 @@ version beside it for CPU tensors:
 
 The last two carry the int8 inference path (``ops/quant.py``,
 ``models/inference.py::make_inference_fn(dtype="int8")``).
+
+The serving paths run the S3D backbone once per frame on phase timelines
+(``inference/streaming.py``: ``StreamingPredictor``, ``generate_result
+--streaming``), advance them incrementally (``inference/live.py``:
+``LiveStreamingPredictor``, ``--live``) and batch many streams in one
+pipeline (``inference/serving.py``: ``MultiLiveServer``, ``cli/serve.py``).
+Every decode ends in the head kernel's fused mode.
 """

@@ -8,9 +8,16 @@ frame's own file name. Windows run --window_batch at a time with BatchNorm
 folded, in --dtype, on --device (default cuda; asking for cuda without a card
 raises).
 
+--streaming runs the backbone once per --chunk frames instead of once per
+window (``inference/streaming.py``); --live feeds the frames --live_micro at
+a time to the live server (``inference/live.py``), which emits each map with
+a constant lag. Both see real temporal neighbours at window edges where the
+reference zero-pads, so their maps differ from the default mode's.
+
 Usage:
   python -m vinet_tpu_torch.cli.generate_result --path_indata DIR \
-      --save_path OUT --file_weight ViNet_DHF1K.pt [--device cuda]
+      --save_path OUT --file_weight ViNet_DHF1K.pt [--device cuda] \
+      [--streaming [--chunk 128] | --live [--live_micro 16]]
 """
 
 from __future__ import annotations
@@ -47,20 +54,69 @@ def build_parser():
                    help="quantize maps to uint8 on the host in f64 (bit-exact "
                         "reference img_save rounding) instead of on the device "
                         "in f32 (can differ by 1 gray level on rounding ties)")
+    p.add_argument("--streaming", action="store_true",
+                   help="whole-video streaming encoder: the backbone runs once per "
+                        "chunk instead of once per window (not output-equivalent: "
+                        "windows see real temporal neighbours where the reference "
+                        "zero-pads)")
+    p.add_argument("--chunk", type=int, default=128,
+                   help="streaming chunk length in frames (multiple of 8)")
+    p.add_argument("--live", action="store_true",
+                   help="drive the live incremental server: frames are fed "
+                        "--live_micro at a time and each map is emitted with a "
+                        "constant lag of about 57 frames (--streaming semantics)")
+    p.add_argument("--live_micro", type=int, default=16,
+                   help="live microbatch (multiple of 8): smaller = lower latency, "
+                        "larger = higher throughput")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda unless asked for cpu")
     add_model_args(p)
     return p
 
 
+def live_span(clip_size: int, micro: int) -> int:
+    """Rolling-buffer span of the live servers: the pipeline lag, one window
+    and two microbatches, at least 160 frames."""
+    return max(160, ((96 + clip_size + 2 * micro + 7) // 8) * 8)
+
+
+def make_predictor(args):
+    """The predictor the flags ask for: live, streaming or sliding-window."""
+    from vinet_tpu_torch.cli.common import build_model
+    from vinet_tpu_torch.inference import (LiveStreamingPredictor, SlidingWindowPredictor,
+                                           StreamingPredictor)
+
+    common = dict(clip_size=args.clip_size, dtype=DTYPES[args.dtype], device=args.device)
+    if args.live:
+        return LiveStreamingPredictor(
+            build_model(args), batch=min(16, args.live_micro), micro=args.live_micro,
+            span=live_span(args.clip_size, args.live_micro), **common)
+    if args.streaming:
+        return StreamingPredictor(build_model(args), batch=args.window_batch,
+                                  chunk=args.chunk, **common)
+    return SlidingWindowPredictor(build_model(args), batch=args.window_batch, **common)
+
+
+def emit_maps(predictor, args, clip_u8: np.ndarray, out_size: tuple):
+    """(frame_index, map) of every frame of one video, quantised to uint8 on
+    the device unless --exact_quantize."""
+    quantize_u8 = not args.exact_quantize
+    if args.live:
+        predictor.reset()
+        predictor.start(out_size=out_size, quantize_u8=quantize_u8)
+        for lo in range(0, len(clip_u8), predictor.micro):
+            yield from predictor.feed(clip_u8[lo: lo + predictor.micro])
+        yield from predictor.flush()
+    else:
+        yield from predictor.predict_video(clip_u8, out_size=out_size,
+                                           pad_short=args.pad_short, quantize_u8=quantize_u8)
+
+
 def run(args) -> int:
-    from vinet_tpu_torch.cli.common import build_model, model_input_size, shard_video_list
-    from vinet_tpu_torch.inference import SlidingWindowPredictor
+    from vinet_tpu_torch.cli.common import model_input_size, shard_video_list
     from vinet_tpu_torch.io.images import load_frame, save_map
 
-    predictor = SlidingWindowPredictor(
-        build_model(args), clip_size=args.clip_size, batch=args.window_batch,
-        dtype=DTYPES[args.dtype], device=args.device)
+    predictor = make_predictor(args)
 
     videos = sorted(d for d in os.listdir(args.path_indata)
                     if os.path.isdir(join(args.path_indata, d)))
@@ -85,9 +141,7 @@ def run(args) -> int:
             orig_w, orig_h = decoded[0][1]
 
             futures = []
-            for frame_idx, smap in predictor.predict_video(
-                    clip_u8, out_size=(orig_h, orig_w), pad_short=args.pad_short,
-                    quantize_u8=not args.exact_quantize):
+            for frame_idx, smap in emit_maps(predictor, args, clip_u8, (orig_h, orig_w)):
                 out_path = join(args.save_path, dname, frames[frame_idx])
                 futures.append(pool.submit(save_map, smap, out_path))
                 n_maps += 1
@@ -98,7 +152,11 @@ def run(args) -> int:
 
 
 def main(argv=None):
-    return run(build_parser().parse_args(argv))
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.live and (args.streaming or args.pad_short):
+        parser.error("--live excludes --streaming and --pad_short")
+    return run(args)
 
 
 if __name__ == "__main__":

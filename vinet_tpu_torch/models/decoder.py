@@ -4,12 +4,17 @@
 names (``convtsp1.0`` ... ``convtsp4.8``). Each stage is Conv3d + ReLU + 2x
 upsample; skips concatenate on the TIME axis (z first, then the skip).
 
-The tail runs conv4 -> ReLU -> upsample -> conv5 -> ReLU; then, for plans
-with conv6, the head fused with the last 2x upsample
-(``ops/saliency_head.py::saliency_head_up2x``: the CUDA kernel on the card,
-its plain version on the CPU) on that coarse z5, cast to the compute dtype,
-so the upsampled z5 is never formed, as in the JAX package's phase-folded
-tail; for plans without conv6, upsample -> conv7 -> sigmoid.
+The tail is the JAX package's phase-folded one (``Decoder._phase_tail``):
+conv4 -> ReLU, then conv5 folded with conv4's 2x upsample
+(``ops/phasefold.py::conv_after_up2x``, one coarse-grid conv, so the
+upsampled conv4 output is never formed; faster than upsample then conv5 on
+the H100, ``PERF.md``) -> ReLU gives the coarse z5, and the head fused with
+the last 2x upsample (``ops/saliency_head.py::saliency_head_up2x``: the CUDA
+kernel on the card, its plain version on the CPU) maps z5 to the map, cast
+to the compute dtype. Plans without conv6 take the same head with conv6 the
+identity (kt 1, no bias): z5 = ReLU(conv5) >= 0 and the upsample's weights
+are non-negative, so ReLU(I·up(z5)) = up(z5) and the kernel computes
+sigmoid(conv7(up(z5))) exactly; their z5 has T 1.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from torch import nn
 
 from vinet_tpu_torch.ops import saliency_head as head
+from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
 from vinet_tpu_torch.ops.upsample import upsample2x_hw
 
 
@@ -85,6 +91,7 @@ class Decoder(nn.Module):
             tail += [_conv(32, 32, kt, st, spatial=False, bias=use_bias), nn.ReLU()]
         tail += [_conv(32, 1, 1, 1, spatial=False, bias=True), nn.Sigmoid()]
         self.convtsp4 = nn.Sequential(*tail)
+        self._fold5 = None  # (key, weights kept alive, FoldedConvUp2x) of conv5
 
     def forward(self, pyramid):
         """pyramid: [y0, y1, y2, y3] NCDHW. Returns (B, H, W) in [0, 1]."""
@@ -99,11 +106,38 @@ class Decoder(nn.Module):
         z = self.convtsp3(z)
         if 3 in skips:
             z = torch.cat([z, y3.to(z.dtype)], dim=2)
-        z = self.convtsp4[:5](z)  # conv4, relu, up, conv5, relu
+        return self.tail(self.convtsp4[:2](z))  # conv4, relu
+
+    def tail(self, z4):
+        """relu(conv4) (B, 64, T, h, w) -> (B, 4h, 4w) maps in z4's dtype:
+        conv5 folded with the 2x upsample before it, ReLU, then the head."""
+        return self.head(torch.relu(self._conv5_folded()(z4, stride_t=self.plan.st5)))
+
+    def _conv5_folded(self) -> FoldedConvUp2x:
+        """conv5 folded with its upsample. Without autograd the fold is kept
+        while conv5's tensors stay as they are (folding on every call costs
+        as much as it saves, PERF.md); the kept tensors hold their storage,
+        so a new tensor never takes their address and key. Inference
+        tensors (made under torch.inference_mode) count no versions, so
+        their fold is made anew on every call."""
+        conv5 = self.convtsp4[3]
+        tensors = [t for t in (conv5.weight, conv5.bias) if t is not None]
+        if torch.is_grad_enabled() or any(t.is_inference() for t in tensors):
+            return FoldedConvUp2x(conv5.weight, conv5.bias)
+        key = [(t.data_ptr(), t._version, t.dtype, t.device) for t in tensors]
+        if self._fold5 is None or self._fold5[0] != key:
+            self._fold5 = (key, [t.detach() for t in tensors],
+                           FoldedConvUp2x(conv5.weight, conv5.bias))
+        return self._fold5[2]
+
+    def head(self, z5):
+        """relu(conv5) at the coarse grid (B, 32, T, h, w) -> (B, 2h, 2w)
+        maps in z5's dtype, through the head fused with the last upsample."""
         if self.plan.conv6 is not None:
             conv6, conv7 = self.convtsp4[6], self.convtsp4[8]
-            out = head.saliency_head_up2x(z.contiguous(), conv6.weight, conv6.bias,
-                                          conv7.weight, conv7.bias)
-            return out.to(z.dtype)
-        z = self.convtsp4[5:](z)  # up, conv7, sigmoid
-        return z[:, 0, 0]
+            w6, b6 = conv6.weight, conv6.bias
+        else:  # the identity conv6; z5's T is 1 in both plans without conv6
+            conv7 = self.convtsp4[6]
+            w6, b6 = torch.eye(32, device=z5.device).reshape(32, 32, 1, 1, 1), None
+        out = head.saliency_head_up2x(z5.contiguous(), w6, b6, conv7.weight, conv7.bias)
+        return out.to(z5.dtype)
