@@ -54,8 +54,21 @@ fails. Phases, each printing one JSON line:
    maps/s, and the device time of one serve step (an advance of 4 streams
    and one decode of 4 x 32 windows).
 
-Phases 6-10 set the launch counts to 0 before their path, read them after,
-and fail unless the fused head launched. Then one line lists every kernel
+11. train: the full-width ViNet(3, 32) with the fixture weights, BatchNorm
+   unfolded in train mode, bf16 convolutions over f32 masters, Adam 1e-4,
+   batch 8 at 32 x 224 x 384: 2 warm-up and 5 timed steps (ms, clips/s,
+   peak memory, the loss of each, which must fall; every gradient finite;
+   every BatchNorm statistic moved; no head launch), a profile of one step,
+   the eval step (the fused head must launch), the CUDA entries' refusal of
+   autograd, one f32 step of ViNet(3, 8) on the card against the CPU, and
+   grad_accum 2 against the mean of its microbatches; then
+   ``vinet_tpu_torch.cli.train`` with validation and a checkpoint, again with
+   --resume (the step count goes on), and --streaming_ft (BatchNorm
+   statistics unchanged).
+
+Phases 6-11 set the launch counts to 0 before their path, read them after,
+and fail unless the fused head launched (phase 11: in the eval step and the
+CLI's validation, and never in a train step). Then one line lists every kernel
 with its numbers (the head's launches on every path), and the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -694,30 +707,45 @@ def phase_int8_model(torch) -> dict:
     return launches
 
 
-def _video_frames(rng, n_frames: int, size: tuple):
-    """(n_frames, H, W, 3) uint8: a bright blob crossing a noisy frame."""
+def _blob(size: tuple, f: int, n_frames: int):
+    """(H, W) in [0, 1]: frame f's Gaussian blob, crossing the frame."""
     import numpy as np
 
     h, w = size
     yy, xx = np.mgrid[0:h, 0:w]
-    frames = np.empty((n_frames, h, w, 3), np.uint8)
+    cy, cx = h / 2, w * (0.2 + 0.6 * f / n_frames)
+    return np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 40.0**2))
+
+
+def _video_frames(rng, n_frames: int, size: tuple):
+    """(n_frames, H, W, 3) uint8: a bright blob crossing a noisy frame."""
+    import numpy as np
+
+    frames = np.empty((n_frames, *size, 3), np.uint8)
     for f in range(n_frames):
-        cy, cx = h / 2, w * (0.2 + 0.6 * f / n_frames)
-        blob = 175.0 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 40.0**2))
-        frames[f] = np.clip(rng.integers(0, 80, (h, w, 3)) + blob[..., None], 0, 255)
+        blob = 175.0 * _blob(size, f, n_frames)
+        frames[f] = np.clip(rng.integers(0, 80, (*size, 3)) + blob[..., None], 0, 255)
     return frames
 
 
-def _write_videos(root: str, n_videos: int, n_frames: int, size: tuple) -> None:
+def _write_videos(root: str, n_videos: int, n_frames: int, size: tuple,
+                  maps: bool = False) -> None:
+    """DHF1K layout: <root>/<video>/images/%04d.png, and with maps the blob
+    of each frame as its GT map, maps/%04d.png."""
     import numpy as np
     from PIL import Image
 
     rng = np.random.default_rng(0)
     for v in range(n_videos):
-        d = os.path.join(root, "%03d" % (v + 1), "images")
-        os.makedirs(d)
+        d = os.path.join(root, "%03d" % (v + 1))
+        os.makedirs(os.path.join(d, "images"))
+        if maps:
+            os.makedirs(os.path.join(d, "maps"))
         for f, img in enumerate(_video_frames(rng, n_frames, size)):
-            Image.fromarray(img).save(os.path.join(d, "%04d.png" % (f + 1)))
+            Image.fromarray(img).save(os.path.join(d, "images", "%04d.png" % (f + 1)))
+            if maps:
+                gt = np.round(255.0 * _blob(size, f, n_frames)).astype(np.uint8)
+                Image.fromarray(gt).save(os.path.join(d, "maps", "%04d.png" % (f + 1)))
 
 
 def _check_maps_written(data: str, out: str, n_videos: int, size: tuple) -> None:
@@ -1092,6 +1120,242 @@ def phase_serve(torch) -> dict:
     return rec
 
 
+# card f32 vs CPU f32 on one train step of ViNet(3, 8): the loss, and the
+# whole gradient in relative L2. Train-mode BatchNorm after every conv makes
+# the gradient chaotic in f32: on the CPU the port's own f32 gradient lies
+# 1.2 % (L2) from its float64 one at this shape (tests/test_torch_training.py)
+TRAIN_CPU_LOSS_TOL, TRAIN_CPU_GRAD_L2_TOL = 1e-4, 0.1
+# grad_accum 2 against the mean of the two microbatches' own gradients, the
+# same operations in the same order (cuDNN deterministic): relative L2
+ACCUM_GRAD_L2_TOL = 1e-3
+
+
+def _train_batch(torch, b: int, t: int, h: int, w: int, seed: int) -> dict:
+    """A fixed synthetic batch on the card: random uint8 clips, normalised,
+    and one Gaussian blob a map as GT."""
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    clip = device_preprocess(torch.randint(0, 256, (b, t, h, w, 3), generator=g, device="cuda",
+                                           dtype=torch.uint8))
+    cy = torch.rand((b, 1, 1), generator=g, device="cuda") * h
+    cx = torch.rand((b, 1, 1), generator=g, device="cuda") * w
+    yy = torch.arange(h, device="cuda").view(1, h, 1)
+    xx = torch.arange(w, device="cuda").view(1, 1, w)
+    gt = torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * (h / 8) ** 2))
+    return {"clip": clip, "gt": gt}
+
+
+def _bn_stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if "running" in k}
+
+
+def _grads(model) -> dict:
+    return {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+
+
+def _grad_errs(torch, got: dict, want: dict) -> tuple:
+    """(relative L2 of the whole gradient, worst leaf's max|err| over the
+    leaf's largest value, that leaf)."""
+    g = torch.cat([got[k].flatten() for k in sorted(want)])
+    r = torch.cat([want[k].flatten() for k in sorted(want)])
+    leaf = {k: float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30))
+            for k in want}
+    worst = max(leaf, key=leaf.get)
+    return float((g - r).norm() / r.norm()), leaf[worst], worst
+
+
+def _autograd_guard(torch) -> dict:
+    """Each CUDA entry refuses inputs that require grad: {entry: raised}."""
+    from vinet_tpu_torch.ops import int8_mm, saliency_head, tconv
+
+    dev = "cuda"
+    z5 = torch.rand((1, 32, 2, 8, 8), device=dev, requires_grad=True)
+    w6, w7 = torch.rand((32, 32, 2, 1, 1), device=dev), torch.rand((1, 32, 1, 1, 1), device=dev)
+    b7 = torch.rand((1,), device=dev)
+    a = torch.rand((16, 32), device=dev).bfloat16().requires_grad_()
+    b = torch.rand((32, 16), device=dev).bfloat16()
+    x = torch.rand((4, 16, 32), device=dev).bfloat16().requires_grad_()
+    w = torch.rand((3, 32, 16), device=dev).bfloat16()
+    calls = {"saliency_head_up2x_cuda": lambda: saliency_head.saliency_head_up2x_cuda(
+                 z5, w6, None, w7, b7),
+             "saliency_head_cuda": lambda: saliency_head.saliency_head_cuda(z5, w6, None, w7, b7),
+             "int8_mm_cuda": lambda: int8_mm.int8_mm_cuda(a, b),
+             "tconv_cuda": lambda: tconv.tconv_cuda(x, w)}
+    raised = {}
+    before = _launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+            raised[name] = False
+        except RuntimeError as e:
+            raised[name] = "no backward" in str(e)
+    check(_launch_counts() == before, "a CUDA entry launched under autograd")
+    return raised
+
+
+def _cli_train(argv: list) -> None:
+    from vinet_tpu_torch.cli.train import main as train_main
+
+    rc = train_main(argv)
+    check(rc == 0, f"cli.train {' '.join(argv)} returned {rc}")
+
+
+def phase_train(torch, card: str) -> dict:
+    """Training on the card: full-width bf16 steps, the eval step through the
+    fused head, the autograd guard, card against CPU, grad_accum, and the
+    train CLI with validation, checkpoint, resume and streaming fine-tuning."""
+    import numpy as np
+
+    from vinet_tpu_torch.io.checkpoint import latest_step
+    from vinet_tpu_torch.models import ViNet
+    from vinet_tpu_torch.training import LossConfig, loss_func
+    from vinet_tpu_torch.training.trainer import (init_train_state, make_eval_step,
+                                                  make_train_step)
+
+    cfg = LossConfig()
+    # 1. ViNet(3, 32), fixture weights, BN unfolded, bf16 convs, Adam 1e-4, batch 8
+    model = _fixture_vinet().cuda()
+    batch = _train_batch(torch, 8, 32, 224, 384, seed=0)
+    ts = init_train_state(model, 1e-4)
+    step = make_train_step(cfg, compute_dtype=torch.bfloat16)
+    bn0 = _bn_stats(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(7):  # 2 warm-up steps, then 5 timed
+        t0 = time.perf_counter()
+        _, metrics = step(ts, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters())
+    n_params = sum(1 for _ in model.parameters())
+    bn_moved = sum(not torch.equal(v, bn0[k]) for k, v in _bn_stats(model).items())
+    timed_ms = step_ms[2:]
+    profile = profile_device(torch, lambda: step(ts, batch))
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as flops:  # forward and backward
+        step(ts, batch)
+    step_flop = flops.get_total_flops()
+
+    # 2. the eval step on the trained model: the fused head kernel
+    _reset_launch_counts()
+    metrics, pred = make_eval_step(cfg)(ts, batch)
+    eval_launches = _launch_counts()
+    eval_loss = float(metrics["loss"])
+    del model, ts, step, batch, pred
+    torch.cuda.empty_cache()
+
+    # 3. the CUDA entries refuse autograd
+    guard = _autograd_guard(torch)
+
+    # 4. one f32 step of ViNet(3, 8) at (2, 8, 64, 96), card against CPU
+    torch.manual_seed(0)
+    small = ViNet(3, 8)
+    sbatch = _train_batch(torch, 4, 8, 64, 96, seed=1)
+    half = {k: v[:2] for k, v in sbatch.items()}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ts_d = init_train_state(copy.deepcopy(small).to(dev), 1e-4)
+        _, m = make_train_step(cfg)(ts_d, {k: v.to(dev) for k, v in half.items()})
+        runs[dev] = (float(m["loss"]), _grads(ts_d.model))
+    cpu_loss_err = abs(runs["cuda"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    cpu_l2, cpu_leaf, cpu_leaf_name = _grad_errs(torch, runs["cuda"][1], runs["cpu"][1])
+
+    # 5. grad_accum 2 against the mean of the two microbatches, on the card
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ts_a = init_train_state(copy.deepcopy(small).cuda(), 0.0)  # lr 0: read the gradients
+        make_train_step(cfg, grad_accum=2)(ts_a, sbatch)
+        ref = copy.deepcopy(small).cuda().train()
+        mean = None
+        for i in (0, 2):
+            ref.zero_grad()
+            loss_func(ref(sbatch["clip"][i:i + 2]), sbatch["gt"][i:i + 2], cfg).backward()
+            g = _grads(ref)
+            mean = g if mean is None else {k: (mean[k] + g[k]) / 2 for k in g}
+        accum_l2, accum_leaf, accum_leaf_name = _grad_errs(torch, _grads(ts_a.model), mean)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    # 6. the train CLI: validation, checkpoint, resume, streaming fine-tuning
+    clis = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+        ck, best, ft = (os.path.join(tmp, n) for n in ("ck", "best.pt", "ft.pt"))
+        _write_videos(train_dir, 24, 64, (112, 192), maps=True)
+        _write_videos(val_dir, 2, 64, (180, 320), maps=True)
+        common = ["--train_path_data", train_dir, "--val_path_data", val_dir, "--bf16",
+                  "--no_epochs", "1", "--no_workers", "8", "--device", "cuda"]
+        for name, extra in (
+                ("train", ["--batch_size", "8", "--max_steps_per_epoch", "3", "--load_weight",
+                           FIXTURE, "--checkpoint_dir", ck, "--model_val_path", best]),
+                ("resume", ["--batch_size", "8", "--max_steps_per_epoch", "3", "--load_weight",
+                            FIXTURE, "--checkpoint_dir", ck, "--model_val_path", best,
+                            "--resume"]),
+                ("streaming_ft", ["--streaming_ft", "--ft_chunk", "64", "--ft_windows", "16",
+                                  "--max_steps_per_epoch", "2", "--load_weight", best,
+                                  "--model_val_path", ft])):
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            _cli_train(common + extra)
+            clis[name] = {"seconds": time.perf_counter() - t0, "launches": _launch_counts(),
+                          "latest_step": latest_step(ck)}
+        before, after = torch.load(best, weights_only=True), torch.load(ft, weights_only=True)
+        ft_bn_changed = sum(not torch.equal(before[k], after[k]) for k in before
+                            if "running" in k)
+        ft_weights_changed = sum(not torch.equal(before[k], after[k]) for k in before
+                                 if k.endswith("weight"))
+
+    rec = {"phase": "train", "card": card,
+           "config": "ViNet(3,32) fixture weights, BN unfolded, bf16 convs, f32 masters, "
+                     "Adam 1e-4", "input": [8, 32, 224, 384, 3],
+           "losses": losses, "step_ms": step_ms, "step_ms_median": float(np.median(timed_ms)),
+           "clips_per_s": 8 * 1e3 / float(np.median(timed_ms)), "peak_mem_gb": peak_gb,
+           "step_flop": step_flop,
+           "achieved_tflop_per_s": step_flop / float(np.median(timed_ms)) / 1e9,
+           "step_profile": profile, "step_launches": step_launches,
+           "params_with_finite_grad": grads_ok, "params": n_params,
+           "bn_stats_moved": bn_moved, "bn_stats": len(bn0),
+           "eval_launches": eval_launches, "eval_loss": eval_loss, "autograd_guard": guard,
+           "card_vs_cpu_f32": {"model": "ViNet(3,8) seeded init", "input": [2, 8, 64, 96, 3],
+                               "loss_rel_err": cpu_loss_err, "grad_rel_l2": cpu_l2,
+                               "worst_leaf_rel_err": cpu_leaf, "worst_leaf": cpu_leaf_name,
+                               "tol": [TRAIN_CPU_LOSS_TOL, TRAIN_CPU_GRAD_L2_TOL]},
+           "grad_accum_2_vs_microbatch_mean": {"input": [4, 8, 64, 96, 3], "grad_rel_l2": accum_l2,
+                                               "worst_leaf_rel_err": accum_leaf,
+                                               "worst_leaf": accum_leaf_name,
+                                               "tol": ACCUM_GRAD_L2_TOL},
+           "cli": clis, "streaming_ft_bn_stats_changed": ft_bn_changed,
+           "streaming_ft_weights_changed": ft_weights_changed,
+           "launches": clis["train"]["launches"]}
+    emit(rec)
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(grads_ok, "a parameter has no gradient or a gradient that is not finite")
+    check(bn_moved == len(bn0), f"{len(bn0) - bn_moved} BN statistics did not move")
+    check(step_launches["saliency_head"] == 0, f"the train steps launched the head: {step_launches}")
+    _require_head(eval_launches, "the eval step")
+    check(all(guard.values()), f"autograd guard: {guard}")
+    check(cpu_loss_err <= TRAIN_CPU_LOSS_TOL and cpu_l2 <= TRAIN_CPU_GRAD_L2_TOL,
+          f"card vs CPU f32 step: loss {cpu_loss_err}, gradient L2 {cpu_l2}")
+    check(accum_l2 <= ACCUM_GRAD_L2_TOL, f"grad_accum 2 vs microbatch mean: L2 {accum_l2}")
+    check(clis["train"]["latest_step"] == 3 and clis["resume"]["latest_step"] == 6,
+          f"checkpoint steps {clis['train']['latest_step']}, {clis['resume']['latest_step']}")
+    for name in clis:
+        _require_head(clis[name]["launches"], f"cli.train {name}'s validation")
+    check(ft_bn_changed == 0, f"streaming fine-tuning changed {ft_bn_changed} BN statistics")
+    check(ft_weights_changed > 0, "streaming fine-tuning changed no weight")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1103,7 +1367,7 @@ def main() -> int:
     import vinet_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t0 = time.perf_counter()
-    phase_card()
+    card = phase_card()
     phase_build()
     rows = {"saliency_head": phase_head_kernel(torch), **phase_gemm_kernels(torch)}
     torch.cuda.empty_cache()
@@ -1115,6 +1379,9 @@ def main() -> int:
                         ("live", phase_live), ("serve", phase_serve)):
         paths[name] = phase(torch)["launches"]
         torch.cuda.empty_cache()
+    train = phase_train(torch, card)
+    paths.update({"train_steps": train["step_launches"], "train_eval_step": train["eval_launches"],
+                  **{f"cli_train_{k}": v["launches"] for k, v in train["cli"].items()}})
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():

@@ -170,3 +170,31 @@ def test_port_imports_neither_jax_nor_vinet_tpu():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "vinet_tpu", "flax", "optax"), (path, name)
+
+
+@pytest.mark.parametrize("kind", ["sliding", "streaming", "live", "serve"])
+def test_predictors_leave_the_callers_model_untouched(kind):
+    """A predictor folds, casts and moves a copy: the caller's model (here a
+    model in training, unfolded, f32) keeps its parameters, dtype, BatchNorms
+    and mode, as the JAX predictors leave (params, state)."""
+    from vinet_tpu_torch.inference import (LiveStreamingPredictor, MultiLiveServer,
+                                           StreamingPredictor)
+    from vinet_tpu_torch.models import ViNet
+
+    torch.manual_seed(0)
+    model = ViNet(3, 32).train()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm3d) for m in model.modules())
+    make = {"sliding": lambda: SlidingWindowPredictor(model, device="cpu"),
+            "streaming": lambda: StreamingPredictor(model, device="cpu"),
+            "live": lambda: LiveStreamingPredictor(model, device="cpu"),
+            "serve": lambda: MultiLiveServer(model, streams=2, device="cpu")}[kind]
+    pred = make()
+    assert pred.model is not model and pred.model.backbone.base1[0].conv_s.weight.dtype == \
+        torch.bfloat16
+    assert model.training and all(m.training for m in model.modules())
+    assert sum(isinstance(m, torch.nn.BatchNorm3d) for m in model.modules()) == n_bn
+    after = model.state_dict()
+    assert sorted(after) == sorted(before)
+    for k, v in before.items():
+        assert after[k].dtype == v.dtype and torch.equal(after[k], v), k

@@ -489,3 +489,41 @@ def test_streaming_predictor_on_card_matches_the_cpu(cuda):
     assert sorted(card) == sorted(cpu) == list(range(64))
     err = max(float(np.abs(card[i] - cpu[i]).max()) for i in range(64))
     assert err < 2e-3, err
+
+
+def _grad_entry_calls(device):
+    """Each CUDA entry on inputs of which one requires grad."""
+    z, w6, b6, w7, b7 = (None if t is None else t.to(device) for t in _head_args(1, 2, 8, 8, True))
+    z.requires_grad_()
+    a, b = (t.to(device) for t in _operands(torch.bfloat16, [(16, 32), (32, 16)]))
+    x, w = (t.to(device) for t in _operands(torch.bfloat16, [(4, 16, 32), (3, 32, 16)]))
+    w.requires_grad_()
+    return {"saliency_head_cuda": lambda: saliency_head.saliency_head_cuda(z, w6, b6, w7, b7),
+            "saliency_head_up2x_cuda": lambda: saliency_head.saliency_head_up2x_cuda(
+                z, w6, b6, w7, b7),
+            "int8_mm_cuda": lambda: int8_mm.int8_mm_cuda(a.requires_grad_(), b),
+            "tconv_cuda": lambda: tconv.tconv_cuda(x, w, 1)}
+
+
+def _assert_refuses_autograd(entry, call):
+    before = (saliency_head.launches, int8_mm.launches, tconv.launches)
+    with pytest.raises(RuntimeError, match=f"{entry} has no backward"):
+        call()
+    assert (saliency_head.launches, int8_mm.launches, tconv.launches) == before
+
+
+@pytest.mark.parametrize("entry", ["saliency_head_cuda", "saliency_head_up2x_cuda",
+                                   "int8_mm_cuda", "tconv_cuda"])
+def test_cuda_entries_refuse_autograd_before_anything_else(entry):
+    """The kernels write through ctypes and record no backward, so a graph
+    through them would be cut without a word: each entry raises first."""
+    _assert_refuses_autograd(entry, _grad_entry_calls("cpu")[entry])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["saliency_head_cuda", "saliency_head_up2x_cuda",
+                                   "int8_mm_cuda", "tconv_cuda"])
+def test_cuda_entries_refuse_autograd_on_card(cuda, entry):
+    _assert_refuses_autograd(entry, _grad_entry_calls(cuda)[entry])
+    with torch.no_grad():  # the same inputs without a graph launch as before
+        _grad_entry_calls(cuda)[entry]()

@@ -155,3 +155,11 @@ def test_live_cli_matches_jax_cli(tmp_path):
               for n in names)
     print(f"max|err| {err} gray levels")
     assert err <= 1
+
+
+def test_predict_video_raises_as_jax_does(trees):
+    """The live server is a feed()/flush() server; stored videos go through
+    StreamingPredictor (vinet_tpu/inference/live.py::predict_video)."""
+    pred = LiveStreamingPredictor(folded_port_model(trees), dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="feed\\(\\)/flush\\(\\) server"):
+        pred.predict_video(_frames(64))

@@ -201,3 +201,17 @@ def test_decoder_keeps_conv5_fold_until_its_weights_change():
         torch.testing.assert_close(cast.tail(z4.double()).float(), port.tail(z4))
     port.tail(z4.requires_grad_()).sum().backward()
     assert port.convtsp4[3].weight.grad is not None and z4.grad is not None
+
+
+def test_fold_constant_first_made_in_inference_mode_serves_autograd():
+    """The fold's cached constant stays a normal tensor when inference mode
+    (a predictor) asks for it first, so a later fold under autograd works."""
+    from vinet_tpu_torch.ops import phasefold
+
+    phasefold._fold_a.cache_clear()
+    w = torch.randn(4, 3, 2, 3, 3)
+    with torch.inference_mode():
+        phasefold.fold_weights_up2x(w)
+    w.requires_grad_()
+    phasefold.fold_weights_up2x(w).sum().backward()
+    assert w.grad is not None

@@ -56,7 +56,7 @@ def test_decoder_8_without_conv6_matches_jax():
     pyr = [rng.random(s).astype(np.float32) for s in
            [(1, 1, 1, 2, 1024), (1, 2, 2, 4, 832), (1, 4, 4, 8, 480), (1, 4, 8, 16, 192)]]
     want, _ = dec.apply(params, {}, [jnp.asarray(y) for y in pyr])
-    port = Decoder(decoder_plan(3, 8))
+    port = Decoder(decoder_plan(3, 8)).eval()
     sd = {k[len("decoder."):]: v for k, v in from_jax_trees({"decoder": params}, {}).items()}
     port.load_state_dict(sd, strict=True)
     with torch.no_grad():

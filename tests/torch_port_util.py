@@ -57,6 +57,19 @@ def random_tree(shapes, rng: np.random.Generator):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
+def bn_tree(shapes, rng: np.random.Generator, leaf: str = ""):
+    """Fill a jax.eval_shape tree of a model with BatchNorm: conv weights
+    N(0, 1/fan_in), BatchNorm scale 1 + N(0, 0.01), bias and mean
+    N(0, 0.01), var 1 + |N(0, 0.01)| (positive, as a variance must be)."""
+    if isinstance(shapes, dict):
+        return {k: bn_tree(v, rng, k) for k, v in shapes.items()}
+    shape = tuple(shapes.shape)
+    if len(shape) == 5:
+        return (rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))).astype(np.float32)
+    v = rng.standard_normal(shape) * 0.1
+    return ({"scale": 1.0 + v, "var": 1.0 + np.abs(v)}.get(leaf, v)).astype(np.float32)
+
+
 def ndhwc_to_ncdhw(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(a, (0, 4, 1, 2, 3)))
 

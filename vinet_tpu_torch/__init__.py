@@ -27,4 +27,9 @@ The serving paths run the S3D backbone once per frame on phase timelines
 ``LiveStreamingPredictor``, ``--live``) and batch many streams in one
 pipeline (``inference/serving.py``: ``MultiLiveServer``, ``cli/serve.py``).
 Every decode ends in the head kernel's fused mode.
+
+Training (``training/``, ``cli/train.py``) runs the model in training mode:
+BatchNorm on batch statistics and the decoder's plain differentiable graph,
+the JAX package's ``train=True`` route; the kernels have no backward and
+refuse autograd. Validation runs in eval mode, through the head kernel.
 """

@@ -14,6 +14,7 @@ and optionally quantise to uint8. The host only decodes and encodes PNGs.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -35,6 +36,13 @@ class WindowTask:
     flipped: bool
 
 
+def prepared_copy(model: torch.nn.Module, dtype: torch.dtype, device) -> torch.nn.Module:
+    """A copy of model for inference: BatchNorms folded, cast to dtype, on
+    device, in eval mode. The model passed in is not changed."""
+    model = copy.deepcopy(model).eval()
+    return cast_floating(fold_batchnorms(model), dtype).to(device)
+
+
 def window_plan(n_frames: int, clip_size: int, *, pad_short: bool = False) -> list:
     """All (out_frame, start, flipped) windows for a video, in the reference's
     emission order. Returns [] for videos that are too short without padding."""
@@ -54,10 +62,12 @@ class SlidingWindowPredictor:
     def __init__(self, model: torch.nn.Module, *, clip_size: int = 32, batch: int = 16,
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
         """model: a ViNet with its weights loaded (or any module mapping
-        (B, T, H, W, 3) clips to (B, H, W) maps). It is prepared in place:
-        BatchNorms folded, cast to dtype, moved to device, eval mode."""
+        (B, T, H, W, 3) clips to (B, H, W) maps). The predictor prepares a
+        copy of it (BatchNorms folded, cast to dtype, moved to device, eval
+        mode) and leaves the caller's model as it is, as the JAX predictors
+        leave (params, state)."""
         self.device = resolve_device(device)
-        self.model = cast_floating(fold_batchnorms(model), dtype).to(self.device).eval()
+        self.model = prepared_copy(model, dtype, self.device)
         self.clip_size = clip_size
         self.batch = batch
         self.dtype = dtype

@@ -346,3 +346,8 @@ class LiveStreamingPredictor(StreamingPredictor):
         """Drain the pipeline; yields the remaining (frame, map)."""
         for _, f, m in self._flush():
             yield f, m
+
+    def predict_video(self, frames_u8, **kw):
+        raise NotImplementedError(
+            "LiveStreamingPredictor is a feed()/flush() server; use "
+            "StreamingPredictor for stored videos")

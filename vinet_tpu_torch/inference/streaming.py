@@ -31,9 +31,8 @@ import torch.nn.functional as F
 
 from vinet_tpu_torch.data.pipeline import device_preprocess
 from vinet_tpu_torch.device import resolve_device
-from vinet_tpu_torch.inference.engine import BLUR_KSIZE, FETCH_EVERY
+from vinet_tpu_torch.inference.engine import BLUR_KSIZE, FETCH_EVERY, prepared_copy
 from vinet_tpu_torch.models.decoder import DECODER_PLANS
-from vinet_tpu_torch.models.inference import cast_floating, fold_batchnorms
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
 from vinet_tpu_torch.ops.upsample import upsample2x_hw
@@ -208,12 +207,13 @@ class StreamingPredictor:
 
     def __init__(self, model, *, clip_size: int = 32, batch: int = 16, chunk: int = 128,
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
-        """model: a ViNet with its weights loaded, prepared in place
-        (BatchNorms folded, cast to dtype, moved to device, eval mode)."""
+        """model: a ViNet with its weights loaded. The predictor prepares a
+        copy of it (BatchNorms folded, cast to dtype, moved to device, eval
+        mode) and leaves the caller's model as it is."""
         if chunk % 8 or chunk < 2 * clip_size:
             raise ValueError(f"chunk must be a multiple of 8 and >= {2 * clip_size}, got {chunk}")
         self.device = resolve_device(device)
-        self.model = cast_floating(fold_batchnorms(model.eval()), dtype).to(self.device)
+        self.model = prepared_copy(model, dtype, self.device)
         self.clip_size = clip_size
         self.batch = batch
         self.chunk = chunk

@@ -102,13 +102,51 @@ def load_npz_trees(path: str) -> tuple[dict, dict]:
     return trees["params"], trees["state"]
 
 
+def s3d_kinetics_remap(sd: dict) -> dict:
+    """The reference's Kinetics-400 name surgery (its train.py, and
+    ``vinet_tpu/io/convert.py::s3d_kinetics_remap``): 'base.N.rest' ->
+    'base{K}.{N - sn}.rest' with sn in [0, 5, 8, 14]; other names pass."""
+    out = {}
+    sn_list = [0, 5, 8, 14]
+    for name, v in sd.items():
+        if name.startswith("module."):
+            name = name[len("module."):]
+        if name.startswith("base."):
+            parts = name.split(".")
+            bn = int(parts[1])
+            sn = max(s for s in sn_list if s <= bn)
+            name = "base%d.%d." % (sn_list.index(sn) + 1, bn - sn) + ".".join(parts[2:])
+        out[name] = v
+    return out
+
+
 def load_weights(path: str) -> dict:
     """A state_dict for the port's ViNet from a JAX-package .npz or a
-    reference .pt state_dict. Load it with load_state_dict(strict=True)."""
+    reference .pt state_dict. Load it with load_state_dict(strict=True), or
+    with ``load_model_weights``. An S3D Kinetics-400 backbone file
+    (S3D_kinetics400.pt, flat 'base.N.*' names) gives the backbone's
+    entries alone, under 'backbone.'."""
     if path.endswith(".npz"):
         return from_jax_trees(*load_npz_trees(path))
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     # a checkpoint saved from nn.DataParallel prefixes every name
-    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    if any(k.startswith("base.") for k in sd):
+        return {f"backbone.{k}": v for k, v in s3d_kinetics_remap(sd).items()
+                if k.startswith("base")}
+    return sd
+
+
+def load_model_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load path (``load_weights``) into model strictly: the whole model, or
+    its backbone alone from a file that holds only the backbone (the decoder
+    keeps its weights). Returns model."""
+    sd = load_weights(path)
+    if all(k.startswith("backbone.") for k in sd):
+        model.backbone.load_state_dict({k[len("backbone."):]: v for k, v in sd.items()},
+                                       strict=True)
+    else:
+        model.load_state_dict(sd, strict=True)
+    return model

@@ -15,6 +15,13 @@ to the compute dtype. Plans without conv6 take the same head with conv6 the
 identity (kt 1, no bias): z5 = ReLU(conv5) >= 0 and the upsample's weights
 are non-negative, so ReLU(I·up(z5)) = up(z5) and the kernel computes
 sigmoid(conv7(up(z5))) exactly; their z5 has T 1.
+
+In training mode (``self.training``) the decoder runs the JAX package's own
+``train=True`` graph instead (``vinet_tpu/models/decoder.py:141-161``):
+conv4 -> ReLU -> up, conv5 -> ReLU -> up, [conv6 -> ReLU], conv7 -> sigmoid,
+each a plain differentiable op, with no fold and no head kernel. It is the
+reference's training graph, not a fallback of the kernel: the head kernel
+has no backward (and raises under autograd), as the Pallas head has no VJP.
 """
 
 from __future__ import annotations
@@ -94,7 +101,9 @@ class Decoder(nn.Module):
         self._fold5 = None  # (key, weights kept alive, FoldedConvUp2x) of conv5
 
     def forward(self, pyramid):
-        """pyramid: [y0, y1, y2, y3] NCDHW. Returns (B, H, W) in [0, 1]."""
+        """pyramid: [y0, y1, y2, y3] NCDHW. Returns (B, H, W) in [0, 1]:
+        through the folded tail and the head in eval mode, through the
+        plain stage graph in training mode."""
         y0, y1, y2, y3 = pyramid
         skips = self.plan.skips
         z = self.convtsp1(y0)
@@ -106,6 +115,8 @@ class Decoder(nn.Module):
         z = self.convtsp3(z)
         if 3 in skips:
             z = torch.cat([z, y3.to(z.dtype)], dim=2)
+        if self.training:
+            return self.convtsp4(z)[:, 0, 0]  # (B, 1, 1, H, W) -> (B, H, W)
         return self.tail(self.convtsp4[:2](z))  # conv4, relu
 
     def tail(self, z4):

@@ -3,7 +3,10 @@
 ``vinet_tpu/models/vinet.py``: num_hier in {0,1,2,3} and clip_size in
 {8,16,32,48} select the decoder plan. ``forward`` takes the JAX package's
 layout, a normalised (B, T, H, W, 3) clip, and returns (B, H, W) maps in
-[0, 1]; inside, the model runs NCDHW.
+[0, 1]; inside, the model runs NCDHW. ``train()`` selects what JAX's
+single ``train=True`` selects: BatchNorm on batch statistics (updating the
+running ones) and the decoder's plain training graph; ``eval()`` the running
+statistics and the decoder's folded tail with the head kernel.
 """
 
 from __future__ import annotations

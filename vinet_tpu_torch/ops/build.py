@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -25,6 +27,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+
+
+def refuse_autograd(entry: str, *tensors) -> None:
+    """Raise if an autograd graph would run through a CUDA entry: the kernels
+    write their outputs through ctypes, which records no backward, so the
+    result would silently cut the graph. No Pallas kernel of the JAX package
+    has a VJP either; training takes the model's plain differentiable route."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{entry} has no backward: call it under torch.no_grad() or "
+                           "torch.inference_mode(), or on tensors that do not require grad")
 
 
 def find_nvcc() -> str:

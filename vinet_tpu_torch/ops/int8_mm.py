@@ -17,8 +17,10 @@ copy, a contiguous ``(K, N)`` one is copied once. Its fast variant needs
 variant of the same kernel.
 
 ``int8_mm`` takes the plain version for CPU tensors only. For a CUDA tensor it
-launches the kernel or raises; it never falls back. ``launches`` counts the
-kernel's launches, so a run can show that its main path went through it.
+launches the kernel or raises; it never falls back. The kernel has no
+backward: the CUDA entry raises when autograd would record through it.
+``launches`` counts the kernel's launches, so a run can show that its main
+path went through it.
 The int8 convolutions of ``ops/quant.py`` are products of this kernel.
 """
 
@@ -81,6 +83,7 @@ def _library() -> ctypes.CDLL:
 def int8_mm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on a's device, on PyTorch's current stream."""
     global launches
+    build.refuse_autograd("int8_mm_cuda", a, b)
     if a.device.type != "cuda":
         raise ValueError(f"int8_mm_cuda needs CUDA tensors, got {a.device}")
     _check(a, b)

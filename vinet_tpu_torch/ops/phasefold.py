@@ -47,8 +47,11 @@ _UP_S = np.array([[0.25, 0.75, 0.0], [0.0, 0.75, 0.25]], dtype=np.float32)
 @functools.lru_cache(maxsize=None)
 def _fold_a(device: torch.device) -> torch.Tensor:
     """A on a device, copied there once: a copy from host memory would make
-    every fold wait for the work queued on the card."""
-    return torch.from_numpy(_FOLD_A).to(device)
+    every fold wait for the work queued on the card. Made outside inference
+    mode even when first asked for inside it, so that a fold under autograd
+    may use it later."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_FOLD_A).to(device)
 
 
 def fold_weights_up2x(w: torch.Tensor) -> torch.Tensor:

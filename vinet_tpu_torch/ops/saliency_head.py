@@ -18,7 +18,9 @@ Two versions of each of two functions, f32 maps out:
 Both kernels are one template in ``csrc/saliency_head.cu`` for Hopper.
 ``saliency_head`` and ``saliency_head_up2x`` take the plain version for CPU
 tensors only. For a CUDA tensor they launch the kernel or raise; they never
-fall back. ``launches`` counts every launch of the head kernel and
+fall back. The kernel has no backward, like the Pallas head: the CUDA entries
+raise when autograd would record through them (training runs the decoder's
+plain graph, ``models/decoder.py``). ``launches`` counts every launch of the head kernel and
 ``launches_up2x`` those of the fused mode, so a run can show that its main
 path went through the kernel.
 """
@@ -99,6 +101,7 @@ def _launch(z, w6, b6, w7, b7, up: bool):
     stream; returns the (B, H, W) or (B, 2H, 2W) f32 maps."""
     global launches, launches_up2x
     entry = "saliency_head_up2x_cuda" if up else "saliency_head_cuda"
+    build.refuse_autograd(entry, z, w6, b6, w7, b7)
     kt = _check(z, w6, b6, w7, b7)
     if z.device.type != "cuda":
         raise ValueError(f"{entry} needs a CUDA tensor, got {z.device}")

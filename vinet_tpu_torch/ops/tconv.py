@@ -19,8 +19,9 @@ variant needs ``C * element size`` to be a multiple of 16 bytes (every
 ``conv_t`` of the model); any other C runs a masked variant.
 
 ``tconv`` takes the plain version for CPU tensors only. For a CUDA tensor it
-launches the kernel or raises; it never falls back. ``launches`` counts the
-kernel's launches. Every ``SepConv3d.conv_t`` of the int8 model runs on it
+launches the kernel or raises; it never falls back. The kernel has no
+backward: the CUDA entry raises when autograd would record through it.
+``launches`` counts the kernel's launches. Every ``SepConv3d.conv_t`` of the int8 model runs on it
 (``ops/quant.py``).
 """
 
@@ -80,6 +81,7 @@ def _library() -> ctypes.CDLL:
 def tconv_cuda(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Launch the CUDA kernel on x's device, on PyTorch's current stream."""
     global launches
+    build.refuse_autograd("tconv_cuda", x, w)
     if x.device.type != "cuda":
         raise ValueError(f"tconv_cuda needs CUDA tensors, got {x.device}")
     t_out = _check(x, w, stride)
