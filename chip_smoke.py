@@ -66,7 +66,17 @@ fails. Phases, each printing one JSON line:
    --resume (the step count goes on), and --streaming_ft (BatchNorm
    statistics unchanged).
 
-Phases 6-11 set the launch counts to 0 before their path, read them after,
+12. accuracy: with ``artifacts/streamft_fixture.npz`` at 224 x 384,
+   ``inference/accuracy.py``'s fixture suite (5 kinds x 72 frames, bf16) and
+   blob video (bf16 and f32), held to the JAX tests' bounds
+   (tests/test_streaming_ft_artifact.py); ``generate_result`` then
+   ``evaluate_dhf1k`` with all nine metrics on a synthetic DHF1K-layout set;
+   ``diem_val`` against ``eval_diem --emd`` on its STAViS layout (per-frame
+   CC within 0.01); ``export_checkpoint`` from the fixture and from the train
+   phase's checkpoint (maps reproduced exactly, mismatched flags refused);
+   the metrics' host ms per frame and the CLIs' frames/s.
+
+Phases 6-12 set the launch counts to 0 before their path, read them after,
 and fail unless the fused head launched (phase 11: in the eval step and the
 CLI's validation, and never in a train step). Then one line lists every kernel
 with its numbers (the head's launches on every path), and the last line is
@@ -76,10 +86,13 @@ with its numbers (the head's launches on every path), and the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1201,10 +1214,11 @@ def _cli_train(argv: list) -> None:
     check(rc == 0, f"cli.train {' '.join(argv)} returned {rc}")
 
 
-def phase_train(torch, card: str) -> dict:
+def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
     """Training on the card: full-width bf16 steps, the eval step through the
     fused head, the autograd guard, card against CPU, grad_accum, and the
-    train CLI with validation, checkpoint, resume and streaming fine-tuning."""
+    train CLI with validation, checkpoint, resume and streaming fine-tuning.
+    The train CLI's checkpoint directory is copied to keep_checkpoint."""
     import numpy as np
 
     from vinet_tpu_torch.io.checkpoint import latest_step
@@ -1308,6 +1322,7 @@ def phase_train(torch, card: str) -> dict:
             _cli_train(common + extra)
             clis[name] = {"seconds": time.perf_counter() - t0, "launches": _launch_counts(),
                           "latest_step": latest_step(ck)}
+        shutil.copytree(ck, keep_checkpoint)  # the accuracy phase exports it
         before, after = torch.load(best, weights_only=True), torch.load(ft, weights_only=True)
         ft_bn_changed = sum(not torch.equal(before[k], after[k]) for k in before
                             if "running" in k)
@@ -1356,6 +1371,272 @@ def phase_train(torch, card: str) -> dict:
     return rec
 
 
+# accuracy bounds: the JAX package's own (tests/test_streaming_ft_artifact.py
+# :44-49 on the blob video, :73-78 on the fixture suite), held in bf16 here
+MODES_MIN = {"parity_cc": 0.70, "streaming_cc": 0.65}  # strictly above
+MODES_AT_LEAST = {"cc_delta": -0.08, "agreement_cc": 0.98}
+KIND_DELTA_MIN, KIND_AGREEMENT_MIN = -0.10, 0.97
+SUITE_DELTA_MIN, SUITE_DELTA_MEAN_MIN = -0.10, -0.08
+# diem_val's per-frame CC (f32 maps) against eval_diem's on the same model's
+# maps written as u8 JPEGs at quality 100: CC is blind to the min-max
+# normalisation, so only the 8-bit rounding and the JPEG round trip differ
+DIEM_CC_TOL = 0.01
+ALL_METRICS = ("cc", "sim", "kldiv", "nss", "aucj", "aucb", "sauc", "ig", "emd")
+
+
+def _run_cli(main, argv: list) -> tuple:
+    """(stdout lines, seconds) of a CLI's main; fails unless it returns 0."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    seconds = time.perf_counter() - t0
+    check(rc in (0, None), f"{main.__module__} {' '.join(argv)} returned {rc}")
+    return buf.getvalue().splitlines(), seconds
+
+
+def _overall(lines: list, header: str) -> dict:
+    """{metric: value} of the 'name: value' lines after header."""
+    start = lines.index(header) + 1
+    out = {}
+    for line in lines[start:]:
+        if line.startswith("==="):
+            break
+        k, v = line.split(": ")
+        out[k] = float(v)
+    return out
+
+
+def _write_stavis(dhf1k_val: str, root: str) -> list:
+    """The STAViS layout of a DHF1K-layout set's videos (tests/fixtures.py's
+    make_sound_dataset): video_frames/DIEM/<v>/img_%05d.jpg,
+    annotations/DIEM/<v>/maps/eyeMap_%05d.jpg (JPEG quality 100),
+    fixMap_%05d.mat (scipy.io.savemat) and the DIEM test fold list."""
+    import numpy as np
+    from PIL import Image
+    from scipy.io import savemat
+
+    names = sorted(os.listdir(dhf1k_val))
+    os.makedirs(os.path.join(root, "fold_lists"))
+    with open(os.path.join(root, "fold_lists", "DIEM_list_test_fps.txt"), "w") as fh:
+        for v in names:
+            src = os.path.join(dhf1k_val, v)
+            fdir = os.path.join(root, "video_frames", "DIEM", v)
+            adir = os.path.join(root, "annotations", "DIEM", v)
+            os.makedirs(fdir)
+            os.makedirs(os.path.join(adir, "maps"))
+            frames = sorted(os.listdir(os.path.join(src, "images")))
+            for f, name in enumerate(frames, start=1):
+                Image.open(os.path.join(src, "images", name)).save(
+                    os.path.join(fdir, "img_%05d.jpg" % f), quality=100)
+                Image.open(os.path.join(src, "maps", name)).save(
+                    os.path.join(adir, "maps", "eyeMap_%05d.jpg" % f), quality=100)
+                fix = np.asarray(Image.open(os.path.join(src, "fixation", name))) > 0
+                savemat(os.path.join(adir, "fixMap_%05d.mat" % f),
+                        {"eyeMap": fix.astype(np.float64)})
+            fh.write(f"{v} {len(frames)} 30.0\n")
+    return names
+
+
+def _metric_host_ms(pred, gt, fix, other, base, reps: int = 5) -> dict:
+    """ms per frame of each metric on the host for one map at 224 x 384."""
+    from vinet_tpu_torch.metrics import (auc_borji, auc_judd, auc_shuffled, cc_score,
+                                         info_gain, kldiv_score, nss_score, similarity_score)
+    from vinet_tpu_torch.metrics.emd import emd_score
+
+    calls = {"cc": lambda: cc_score(pred, gt), "sim": lambda: similarity_score(pred, gt),
+             "nss": lambda: nss_score(pred, fix), "kldiv": lambda: kldiv_score(pred, gt),
+             "aucj": lambda: auc_judd(pred, fix), "aucb": lambda: auc_borji(pred, fix),
+             "sauc": lambda: auc_shuffled(pred, fix, other),
+             "ig": lambda: info_gain(pred, fix, base), "emd": lambda: emd_score(pred, gt)}
+    out = {}
+    for name, call in calls.items():
+        call()  # the first EMD call loads the native library
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def _maps_equal(torch, a, b) -> bool:
+    """The bf16 maps of two models on one window batch, bit for bit."""
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+    from vinet_tpu_torch.inference.engine import prepared_copy
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = device_preprocess(torch.randint(0, 256, (4, 32, 224, 384, 3), generator=g,
+                                        device="cuda", dtype=torch.uint8)).to(torch.bfloat16)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.inference_mode():
+            ma = prepared_copy(a, torch.bfloat16, "cuda")(x)
+            mb = prepared_copy(b, torch.bfloat16, "cuda")(x)
+        return bool(torch.equal(ma, mb))
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def phase_accuracy(torch, ck_dir: str) -> dict:
+    """Accuracy and evaluation on the card: the fixture suite and the blob
+    video (parity against streaming, bf16 and f32) with the JAX tests'
+    bounds; generate_result -> evaluate_dhf1k with every metric; diem_val
+    against eval_diem on a STAViS-layout set; export_checkpoint from the
+    fixture and from the train phase's checkpoint; the metrics' host cost.
+    Each model-driven path runs with the launch counts at 0 and must launch
+    the fused head."""
+    import numpy as np
+
+    from vinet_tpu_torch.cli.diem_val import main as diem_val_main
+    from vinet_tpu_torch.cli.eval_diem import main as eval_diem_main
+    from vinet_tpu_torch.cli.evaluate_dhf1k import main as evaluate_main
+    from vinet_tpu_torch.cli.export_checkpoint import main as export_main
+    from vinet_tpu_torch.cli.generate_result import main as generate_main
+    from vinet_tpu_torch.data.synthetic import build_blob_dataset
+    from vinet_tpu_torch.inference.accuracy import (evaluate_fixture_suite, evaluate_modes,
+                                                    load_artifact)
+    from vinet_tpu_torch.io.checkpoint import restore_raw
+    from vinet_tpu_torch.io.images import load_map
+    from vinet_tpu_torch.models import ViNet
+
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    model = load_artifact(FIXTURE)
+    paths, seconds = {}, {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        paths[name] = _launch_counts()
+        _require_head(paths[name], f"the accuracy path {name}")
+        return out
+
+    # (a) the fixture suite, bf16: 5 kinds x 72 frames, batch 16, chunk 128
+    suite = counted("accuracy_fixture_suite", lambda: evaluate_fixture_suite(
+        model, n_frames=72, dtype=torch.bfloat16, batch=16, chunk=128, device="cuda"))
+    # (b) the blob video, stride 4, batch 8, in bf16 and f32
+    modes = {name: counted(f"accuracy_blob_{name}", lambda dt=dt: evaluate_modes(
+        model, n_frames=72, seeds=(100,), dtype=dt, parity_stride=4, batch=8, device="cuda"))
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    keys = ("parity_cc", "streaming_cc", "cc_delta", "agreement_cc")
+    bf16_shift = {k: modes["bf16"][k] - modes["f32"][k] for k in keys}
+
+    # (c) the CLIs on a DHF1K-layout set and its STAViS layout
+    weights = ["--file_weight", FIXTURE, "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        _, val = build_blob_dataset(tmp, n_train=0, n_val=2, n_frames=72)
+        n_eval = 2 * 72
+        pred = os.path.join(tmp, "pred")
+        counted("accuracy_generate_result", lambda: _run_cli(
+            generate_main, ["--path_indata", val, "--save_path", pred, *weights]))
+        lines, seconds["evaluate_dhf1k"] = _run_cli(evaluate_main, [
+            "--pred_path", pred, "--gt_path", val, "--metrics", ",".join(ALL_METRICS)])
+        dhf1k = _overall(lines, "=== overall (per-video means) ===")
+
+        stavis = os.path.join(tmp, "stavis")
+        names = _write_stavis(val, stavis)
+        frames_in = os.path.join(tmp, "stavis_in")  # generate_result's <video>/images/
+        for v in names:
+            os.makedirs(os.path.join(frames_in, v))
+            os.symlink(os.path.join(stavis, "video_frames", "DIEM", v),
+                       os.path.join(frames_in, v, "images"))
+        pred_jpg = os.path.join(tmp, "pred_jpg")
+        counted("accuracy_generate_result_stavis", lambda: _run_cli(
+            generate_main, ["--path_indata", frames_in, "--save_path", pred_jpg, *weights]))
+        diem_lines, _ = counted("diem_val", lambda: _run_cli(diem_val_main, [
+            "--path_data", stavis, "--dataset", "DIEM", "--mode", "test",
+            "--use_sound", "False", *weights]))
+        diem = {"per_frame": _overall(diem_lines, "=== per-frame averages ==="),
+                "per_video": _overall(diem_lines, "=== per-video averages ===")}
+        lines, seconds["eval_diem"] = _run_cli(eval_diem_main, [
+            "--pred_path", pred_jpg, "--annot_path", os.path.join(stavis, "annotations", "DIEM"),
+            "--annot_file", os.path.join(stavis, "fold_lists", "DIEM_list_test_fps.txt"),
+            "--emd", "--per_frame"])
+        eval_diem = _overall(lines, "=== overall ===")
+        written = sorted(os.listdir(os.path.join(pred_jpg, names[0])))
+
+        # (e) the metrics' host cost, one map at 224 x 384
+        v0 = os.path.join(val, names[0])
+        fix_dir = os.path.join(v0, "fixation")
+        fixes = [load_map(os.path.join(fix_dir, f)) > 0 for f in sorted(os.listdir(fix_dir))]
+        # 10 fixations (a frame has one, and AUC-Borji needs two), the shuffle
+        # map of 10 other frames', the IG baseline of 10 GT maps
+        fix = np.logical_or.reduce(fixes[:10]).astype(np.float64)
+        other = np.logical_or.reduce(fixes[10:20]).astype(np.float64)
+        base = np.mean([load_map(os.path.join(v0, "maps", "%04d.png" % f))
+                        for f in range(2, 12)], axis=0)
+        host_ms = _metric_host_ms(load_map(os.path.join(pred, names[0], "0001.png")),
+                                  load_map(os.path.join(v0, "maps", "0001.png")), fix, other,
+                                  base)
+
+    # (d) export: the fixture and the train phase's checkpoint
+    exports = {}
+    ck_model = ViNet(3, 32)
+    ck_model.load_state_dict(restore_raw(ck_dir)["model"], strict=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, source, src_model in (("fixture", ["--file_weight", FIXTURE], model),
+                                        ("train_checkpoint", ["--checkpoint_dir", ck_dir],
+                                         ck_model)):
+            out = os.path.join(tmp, f"{name}.pt")
+            _, secs = _run_cli(export_main, [*source, "--output", out])
+            fresh = ViNet(3, 32)
+            fresh.load_state_dict(torch.load(out, weights_only=True), strict=True)
+            exports[name] = {"seconds": secs, "maps_equal": _maps_equal(torch, fresh, src_model)}
+        try:  # a model built from other flags fails the strict load
+            with contextlib.redirect_stderr(io.StringIO()):
+                export_main(["--clip_size", "16", "--checkpoint_dir", ck_dir,
+                             "--output", os.path.join(tmp, "x.pt")])
+            mismatch_exit = 0
+        except SystemExit as e:
+            mismatch_exit = e.code
+
+    rec = {"phase": "accuracy", "config": "ViNet(3,32) fixture weights, 224 x 384",
+           "fixture_suite": {"dtype": "bfloat16", "frames": 72, "batch": 16, "chunk": 128,
+                             **suite},
+           "blob": {"frames": 72, "seeds": [100], "parity_stride": 4, "batch": 8, **modes},
+           "bf16_minus_f32": bf16_shift,
+           "evaluate_dhf1k": {"videos": 2, "frames": n_eval, "overall": dhf1k,
+                              "frames_per_s": n_eval / seconds["evaluate_dhf1k"]},
+           "diem_val": {**diem, "frames_per_s": n_eval / seconds["diem_val"]},
+           "eval_diem_per_frame": eval_diem,
+           "diem_cc_abs_diff": abs(diem["per_frame"]["cc"] - eval_diem["cc"]),
+           "diem_cc_tol": DIEM_CC_TOL,
+           "generate_result_maps_per_s": n_eval / seconds["accuracy_generate_result"],
+           "metric_host_ms_per_frame": host_ms, "exports": exports,
+           "export_flag_mismatch_exit": mismatch_exit, "seconds": seconds,
+           "launches": paths, "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    for row in suite["fixtures"]:
+        check(row["cc_delta"] >= KIND_DELTA_MIN and row["agreement_cc"] >= KIND_AGREEMENT_MIN,
+              f"fixture suite bf16, kind {row}")
+    check(suite["cc_delta_min"] >= SUITE_DELTA_MIN, f"cc_delta_min {suite['cc_delta_min']}")
+    check(suite["cc_delta_mean"] >= SUITE_DELTA_MEAN_MIN, f"cc_delta_mean {suite['cc_delta_mean']}")
+    for name, r in modes.items():
+        for k, lo in MODES_MIN.items():
+            check(r[k] > lo, f"blob {name}: {k} {r[k]} not above {lo}")
+        for k, lo in MODES_AT_LEAST.items():
+            check(r[k] >= lo, f"blob {name}: {k} {r[k]} below {lo}")
+    check(sorted(dhf1k) == sorted(m for m in ALL_METRICS if m != "aucb"),
+          f"evaluate_dhf1k printed {sorted(dhf1k)}")  # aucb: one fixation a frame, undefined
+    check(all(np.isfinite(v) for v in dhf1k.values()), f"evaluate_dhf1k overall {dhf1k}")
+    check(dhf1k["cc"] > 0.5, f"evaluate_dhf1k cc {dhf1k['cc']}")
+    check(written == ["img_%05d.jpg" % f for f in range(1, 73)], "generate_result's JPEG maps")
+    check(sorted(eval_diem) == ["aucj", "cc", "emd", "nss", "sauc", "sim"]
+          and all(np.isfinite(v) for v in eval_diem.values()), f"eval_diem {eval_diem}")
+    check(sorted(diem["per_frame"]) == ["aucj", "cc", "nss", "sim"], f"diem_val {diem}")
+    check(rec["diem_cc_abs_diff"] <= DIEM_CC_TOL,
+          f"diem_val cc {diem['per_frame']['cc']} vs eval_diem cc {eval_diem['cc']}")
+    for name, e in exports.items():
+        check(e["maps_equal"], f"the {name} export does not reproduce its model's maps")
+    check(mismatch_exit == 2, f"export with mismatched flags exited {mismatch_exit}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1379,9 +1660,14 @@ def main() -> int:
                         ("live", phase_live), ("serve", phase_serve)):
         paths[name] = phase(torch)["launches"]
         torch.cuda.empty_cache()
-    train = phase_train(torch, card)
-    paths.update({"train_steps": train["step_launches"], "train_eval_step": train["eval_launches"],
-                  **{f"cli_train_{k}": v["launches"] for k, v in train["cli"].items()}})
+    with tempfile.TemporaryDirectory() as work:
+        ck_dir = os.path.join(work, "train_checkpoints")
+        train = phase_train(torch, card, ck_dir)
+        paths.update({"train_steps": train["step_launches"],
+                      "train_eval_step": train["eval_launches"],
+                      **{f"cli_train_{k}": v["launches"] for k, v in train["cli"].items()}})
+        torch.cuda.empty_cache()
+        paths.update(phase_accuracy(torch, ck_dir)["launches"])
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():

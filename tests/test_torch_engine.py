@@ -170,6 +170,13 @@ def test_port_imports_neither_jax_nor_vinet_tpu():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "vinet_tpu", "flax", "optax"), (path, name)
+    # the port's EMD is its own library, built from its own copy of the source
+    from vinet_tpu_torch.metrics import emd
+
+    lib = Path(emd._load_native()._name).resolve()
+    assert emd.SOURCE == REPO / "vinet_tpu_torch" / "native" / "emd" / "emd_hat.cpp"
+    assert lib.parent == REPO / "vinet_tpu_torch" / "_build" and lib.name.startswith("libemd_hat-")
+    assert "native" not in lib.parts and not lib.is_relative_to(REPO / "vinet_tpu")
 
 
 @pytest.mark.parametrize("kind", ["sliding", "streaming", "live", "serve"])

@@ -113,3 +113,28 @@ def folded_port_model(trees: tuple):
     model = ViNet(3, 32)
     model.load_state_dict(from_jax_trees(*trees), strict=True)
     return fold_batchnorms(model.eval()).float()
+
+
+def build_jax_emd(workdir) -> "ctypes.CDLL":
+    """The JAX package's native EMD solver, built from its source with its own
+    Makefile in workdir (a copy), so a test never runs ``make`` in
+    ``vinet_tpu/native/emd`` beside the JAX tests. Returns the library with
+    the argtypes ``vinet_tpu.metrics.emd._load_native`` sets; hand it to
+    ``vinet_tpu.metrics.emd`` by patching ``_load_native``."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "vinet_tpu", "native", "emd")
+    for name in ("emd_hat.cpp", "Makefile"):
+        shutil.copy(os.path.join(src, name), workdir)
+    subprocess.run(["make", "-C", str(workdir)], check=True, capture_output=True)
+    lib = ctypes.CDLL(os.path.join(str(workdir), "libemd.so"))
+    lib.emd_hat_compute.restype = ctypes.c_double
+    lib.emd_hat_compute.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+        ctypes.c_double, ctypes.c_double, ctypes.POINTER(ctypes.c_double),
+    ]
+    return lib

@@ -23,13 +23,24 @@ def str2bool(v) -> bool:
     raise argparse.ArgumentTypeError(f"boolean expected, got {v!r}")
 
 
-def add_bool_flag(parser, name: str, default: bool) -> None:
-    parser.add_argument(f"--{name}", type=str2bool, default=default, metavar="BOOL")
+def add_bool_flag(parser, name: str, default: bool, help: str | None = None) -> None:
+    parser.add_argument(f"--{name}", type=str2bool, default=default, metavar="BOOL",
+                        help=help)
 
 
 def add_model_args(parser):
+    """The JAX package's model flags, so its command lines parse here; the
+    audio-visual ones (--use_sound True and its transformer's) wait for the
+    audio-visual slice."""
     parser.add_argument("--clip_size", type=int, default=32)
     parser.add_argument("--num_hier", type=int, default=3)
+    no_effect = "parsed only; no effect until AViNet lands (ROADMAP.md queue 1 item 5)"
+    parser.add_argument("--nhead", type=int, default=4, help=no_effect)
+    parser.add_argument("--num_encoder_layers", type=int, default=3, help=no_effect)
+    parser.add_argument("--transformer_in_channel", type=int, default=32, help=no_effect)
+    add_bool_flag(parser, "use_sound", False,
+                  help="True raises: AViNet waits for ROADMAP.md queue 1 item 5")
+    add_bool_flag(parser, "use_transformer", False, help=no_effect)
     parser.add_argument("--input_h", type=int, default=224,
                         help="model input height (reference fixed 224)")
     parser.add_argument("--input_w", type=int, default=384,
@@ -44,7 +55,11 @@ def build_model(args) -> ViNet:
     """ViNet for the flags, with --file_weight loaded strictly (an S3D
     Kinetics-400 file into the backbone alone); without weights (the string
     "None" included, as reference command lines pass it), a random init
-    from seed 0."""
+    from seed 0. --use_sound True raises: AViNet is not ported yet."""
+    if getattr(args, "use_sound", False):
+        raise NotImplementedError(
+            "--use_sound True needs AViNet, which the port does not have yet "
+            "(ROADMAP.md queue 1 item 5, audio-visual)")
     torch.manual_seed(0)
     model = ViNet(num_hier=args.num_hier, clip_size=args.clip_size)
     path = getattr(args, "file_weight", None)

@@ -48,14 +48,19 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(directory: str, ts, step: int | None = None):
-    """Load the checkpoint of step (default the latest) into ts in place and
-    return it; tensors go to the devices of the model's parameters."""
+def restore_raw(directory: str, step: int | None = None, map_location="cpu") -> dict:
+    """The checkpoint of step (default the latest) as saved: {"model",
+    "optimizer", "step", "generator"}, without a train state to load into."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
-    device = next(ts.model.parameters()).device
-    ck = torch.load(_path(directory, step), map_location=device, weights_only=True)
+    return torch.load(_path(directory, step), map_location=map_location, weights_only=True)
+
+
+def restore_checkpoint(directory: str, ts, step: int | None = None):
+    """Load the checkpoint of step (default the latest) into ts in place and
+    return it; tensors go to the devices of the model's parameters."""
+    ck = restore_raw(directory, step, map_location=next(ts.model.parameters()).device)
     ts.model.load_state_dict(ck["model"], strict=True)
     ts.optimizer.load_state_dict(ck["optimizer"])
     ts.step = int(ck["step"])
