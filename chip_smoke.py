@@ -76,7 +76,22 @@ fails. Phases, each printing one JSON line:
    phase's checkpoint (maps reproduced exactly, mismatched flags refused);
    the metrics' host ms per frame and the CLIs' frames/s.
 
-Phases 6-12 set the launch counts to 0 before their path, read them after,
+13. av: AViNet(3, 32) at 224 x 384, the visual model from the fixture, the
+   audio and fusion weights from a numpy seed
+   (``inference/accuracy.py::av_fixture_model``), BatchNorm folded: a window
+   batch of 16 clips with (16, 70560, 1) audio in bf16 (clips/s, device time
+   by part: backbone, SoundNet + pool + bilinear, decoder), against f32, f32
+   card against CPU on one clip, the refinement encoder once at batch 2;
+   ``generate_result_audio_visual`` (parity, ``--streaming``, ``--live
+   --live_micro 16``), ``generate_result_dave --fps_json`` and
+   ``generate_theatre`` (a 44.1 kHz wav) on 2 synthetic videos x 72 frames
+   with their wavs (maps/s, a JPEG map for every frame); one 128-frame
+   ``--streaming`` chunk's device time by part; ``AVMultiLiveServer`` at 4
+   streams x micro 32 against single-stream live in f32, its bf16 maps/s
+   and one serve step's device time; ``evaluate_av_agreement`` on the
+   fixture suite in bf16, the blob kind within 0.005 of f32.
+
+Phases 6-13 set the launch counts to 0 before their path, read them after,
 and fail unless the fused head launched (phase 11: in the eval step and the
 CLI's validation, and never in a train step). Then one line lists every kernel
 with its numbers (the head's launches on every path), and the last line is
@@ -1637,6 +1652,318 @@ def phase_accuracy(torch, ck_dir: str) -> dict:
     return rec
 
 
+# the audio-visual phase: AViNet(3, 32) at 224 x 384 with the fixture's
+# visual weights and seeded audio and fusion weights
+AV_SEED = 0
+AV_FPS = 25.0
+AV_FS = 22050
+# AViNet's evaluate_av_agreement on the blob kind: bf16 against f32
+AV_AGREEMENT_BF16_TOL = 0.005
+
+
+def _av_model(torch, use_transformer: bool = False):
+    """AViNet(3, 32) in f32 on the CPU, unprepared."""
+    from vinet_tpu_torch.inference.accuracy import av_fixture_model
+
+    return av_fixture_model(FIXTURE, seed=AV_SEED, use_transformer=use_transformer)
+
+
+def _av_audio(torch, b: int, seed: int):
+    """(b, 70560, 1) excerpts at the raw 2^-23 scale of a loud int16 wav."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, 70560, 1), generator=g, device="cuda") * (8000 * 2.0**-23)
+
+
+def _write_av_videos(root: str, n_videos: int, n_frames: int, size: tuple) -> list:
+    """A STAViS layout (video_frames/DIEM/<v>/img_%05d.jpg, a 22050 Hz int16
+    wav video_audio/DIEM/<v>/<v>.wav, the DIEM test fold list), and the
+    theatre layout of the same videos (theatre/fps.json,
+    theatre/video_frames/<v>/, a 44100 Hz wav theatre/video_audio/<v>.wav).
+    Returns the names."""
+    import numpy as np
+    from PIL import Image
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(5)
+    names = ["v%02d" % v for v in range(n_videos)]
+    os.makedirs(os.path.join(root, "fold_lists"))
+    os.makedirs(os.path.join(root, "theatre", "video_audio"))
+    for v in names:
+        fdir = os.path.join(root, "video_frames", "DIEM", v)
+        wdir = os.path.join(root, "video_audio", "DIEM", v)
+        os.makedirs(fdir)
+        os.makedirs(wdir)
+        for f, img in enumerate(_video_frames(rng, n_frames, size), start=1):
+            Image.fromarray(img).save(os.path.join(fdir, "img_%05d.jpg" % f), quality=95)
+        for fs, path in ((AV_FS, os.path.join(wdir, f"{v}.wav")),
+                         (44100, os.path.join(root, "theatre", "video_audio", f"{v}.wav"))):
+            t = np.arange(int(fs * n_frames / AV_FPS)) / fs
+            wav = 8000 * np.sin(2 * np.pi * (220 + 200 * t) * t) + rng.normal(0, 500, t.shape)
+            wavfile.write(path, fs, wav.astype(np.int16))
+        os.makedirs(os.path.join(root, "theatre", "video_frames"), exist_ok=True)
+        os.symlink(fdir, os.path.join(root, "theatre", "video_frames", v))
+    with open(os.path.join(root, "fold_lists", "DIEM_list_test_fps.txt"), "w") as fh:
+        fh.writelines(f"{v} {n_frames} {AV_FPS}\n" for v in names)
+    with open(os.path.join(root, "fps.json"), "w") as fh:
+        json.dump({v: AV_FPS for v in names}, fh)
+    with open(os.path.join(root, "theatre", "fps.json"), "w") as fh:
+        json.dump({v: AV_FPS for v in names}, fh)
+    return names
+
+
+def phase_av(torch) -> dict:
+    """AViNet on every serving path: the window batch (bf16 clips/s, the
+    fusion's share of the device time, bf16 against f32, card against CPU,
+    the refinement encoder once), the CLIs (generate_result_audio_visual
+    parity, --streaming, --live; generate_result_dave; generate_theatre on a
+    44.1 kHz wav), one --streaming chunk's device time by part, the
+    multi-stream server against single streams, and evaluate_av_agreement. Each path runs with the launch counts at 0 and
+    must launch the fused head. Returns the launches by path."""
+    import numpy as np
+
+    from vinet_tpu_torch.cli.generate_result import live_span
+    from vinet_tpu_torch.cli.generate_result_audio_visual import main as av_main
+    from vinet_tpu_torch.cli.generate_result_dave import main as dave_main
+    from vinet_tpu_torch.cli.generate_theatre import main as theatre_main
+    from vinet_tpu_torch.data.audio import audio_excerpt
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+    from vinet_tpu_torch.inference import (AVLiveStreamingPredictor, AVMultiLiveServer,
+                                           AVStreamingPredictor)
+    from vinet_tpu_torch.inference.accuracy import evaluate_av_agreement, synthetic_audio_info
+    from vinet_tpu_torch.inference.streaming import dense_decoder_front, streaming_pyramid
+    from vinet_tpu_torch.io.export import export_torch_checkpoint
+    from vinet_tpu_torch.models import cast_floating, fold_batchnorms
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    paths, rec = {}, {"phase": "av", "config": "AViNet(3,32) bilinear, fixture visual weights, "
+                      f"audio and fusion from numpy seed {AV_SEED}, BN folded"}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[name] = _launch_counts()
+        _require_head(paths[name], f"the AV path {name}")
+        return out, time.perf_counter() - t0
+
+    # (a) the window batch
+    base = _av_model(torch)  # unfolded: the CLIs load its export strictly
+    model = fold_batchnorms(copy.deepcopy(base).eval())
+    cpu32 = cast_floating(copy.deepcopy(model), torch.float32)
+    gpu32 = copy.deepcopy(cpu32).cuda()
+    gpu16 = cast_floating(copy.deepcopy(model), torch.bfloat16).cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = device_preprocess(torch.randint(0, 256, (16, 32, 224, 384, 3), generator=g,
+                                        device="cuda", dtype=torch.uint8))
+    audio = _av_audio(torch, 16, 1)
+    x16, a16 = x.to(torch.bfloat16), audio.to(torch.bfloat16)
+    with torch.inference_mode():
+        out16, _ = counted("av_window_batch", lambda: gpu16(x16, a16).float())
+        out32 = gpu32(x, audio)
+        check(out16.shape == (16, 224, 384) and bool(torch.isfinite(out16).all()),
+              "AV bf16 output")
+        d = (out16 - out32).abs()
+        bf16_max, bf16_mean = float(d.max()), float(d.mean())
+        cpu_err = float((gpu32(x[:1], audio[:1]).cpu() - cpu32(x[:1].cpu(), audio[:1].cpu()))
+                        .abs().max())
+        del out32, gpu32
+        iters = 5
+        for _ in range(2):
+            gpu16(x16, a16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            gpu16(x16, a16)
+        torch.cuda.synchronize()
+        clips_per_s = iters * 16 / (time.perf_counter() - t0)
+        state = {}
+
+        def backbone():
+            state["pyr"] = gpu16.visual_model.backbone(x16.permute(0, 4, 1, 2, 3).contiguous())
+
+        def fusion():
+            state["fused"] = gpu16.fuse(state["pyr"][0], a16)
+
+        def decoder():
+            gpu16.visual_model.decoder([state["fused"], *state["pyr"][1:]])
+
+        parts = [("backbone", backbone), ("soundnet_pool_bilinear", fusion), ("decoder", decoder)]
+        _part_times(torch, parts)
+        part_ms = _part_times(torch, parts)
+        profile = profile_device(torch, lambda: gpu16(x16, a16))
+        del gpu16, state
+        torch.cuda.empty_cache()
+        # the refinement encoder once, batch 2, bf16 against f32
+        tr = fold_batchnorms(_av_model(torch, use_transformer=True).eval())
+        tr16 = cast_floating(copy.deepcopy(tr), torch.bfloat16).cuda()
+        tr32 = cast_floating(tr, torch.float32).cuda()
+        tr_out, _ = counted("av_transformer", lambda: tr16(x16[:2], a16[:2]).float())
+        tr_err = float((tr_out - tr32(x[:2], audio[:2])).abs().max())
+        check(tr_out.shape == (2, 224, 384) and bool(torch.isfinite(tr_out).all()),
+              "AV use_transformer output")
+        del tr16, tr32, tr
+    rec.update({
+        "input": list(x.shape), "audio": list(audio.shape), "dtype": "torch.bfloat16",
+        "bf16_clips_per_s": clips_per_s, "part_ms": part_ms,
+        "fusion_share": part_ms["soundnet_pool_bilinear"] / sum(part_ms.values()),
+        "profile": {k: profile[k] for k in ("device_ms", "device_idle_share", "kernel_ms",
+                                            "top_kernels")},
+        "bf16_vs_f32_max_abs_err": bf16_max, "bf16_vs_f32_mean_abs_err": bf16_mean,
+        "bf16_tol": [BF16_MAX_TOL, BF16_MEAN_TOL], "card_f32_vs_cpu_f32_max_abs_err": cpu_err,
+        "cpu_input": [1, 32, 224, 384, 3], "cpu_tol": CPU_TOL,
+        "transformer_bf16_vs_f32_max_abs_err": tr_err})
+    check(bf16_max <= BF16_MAX_TOL and bf16_mean <= BF16_MEAN_TOL,
+          f"AV bf16 vs f32: max {bf16_max}, mean {bf16_mean}")
+    check(cpu_err < CPU_TOL, f"AV card f32 vs CPU f32: max|err| {cpu_err}")
+    check(tr_err <= BF16_MAX_TOL, f"AV use_transformer bf16 vs f32: max {tr_err}")
+    check(profile["kernel_ms"]["saliency_head"] > 0, "the AV profile credits no time to the head")
+
+    # (b) the CLIs on a synthetic STAViS layout, 2 videos x 72 frames
+    n_videos, n_frames, size = 2, 72, (224, 384)
+    clis = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        names = _write_av_videos(data, n_videos, n_frames, size)
+        weights = os.path.join(tmp, "avinet.pt")
+        export_torch_checkpoint(weights, base)
+        common = ["--file_weight", weights, "--use_sound", "True", "--device", "cuda"]
+        runs = {
+            "av_parity": (av_main, ["--path_data", data, "--window_batch", "16"]),
+            "av_streaming": (av_main, ["--path_data", data, "--streaming"]),
+            "av_live": (av_main, ["--path_data", data, "--live", "--live_micro", "16"]),
+            "av_dave": (dave_main, ["--path_data", data, "--fps_json",
+                                    os.path.join(data, "fps.json")]),
+            "av_theatre": (theatre_main, ["--path_indata", os.path.join(data, "theatre")]),
+        }
+        for name, (main, argv) in runs.items():
+            out = os.path.join(tmp, name)
+            (lines, _), seconds = counted(name, lambda: _run_cli(main, argv + common
+                                                                 + ["--save_path", out]))
+            for v in names:  # JPEG maps named as the frames
+                written = sorted(os.listdir(os.path.join(out, v)))
+                check(written == ["img_%05d.jpg" % f for f in range(1, n_frames + 1)],
+                      f"{name} {v}: {len(written)} maps for {n_frames} frames")
+            check(lines[-1] == f"wrote {n_videos * n_frames} maps", f"{name}: {lines[-1]}")
+            clis[name] = {"seconds": seconds, "maps_per_s": n_videos * n_frames / seconds}
+    rec["clis"] = {"videos": n_videos, "frames": n_frames, "frame_size": list(size), **clis}
+
+    # (c) one 128-frame --streaming chunk's device time by part: its 97
+    # window starts in 7 batches of 16, each with its excerpts (made before)
+    pred = AVStreamingPredictor(base, chunk=128, batch=16, device="cuda")
+    frames = torch.from_numpy(_video_frames(np.random.default_rng(1), 128, size)).cuda()[None]
+    info = synthetic_audio_info(128, fps=AV_FPS, seed=1)
+    batches = [list(range(lo, min(97, lo + 16))) for lo in range(0, 97, 16)]
+    auds = [pred._audio([[audio_excerpt(info, 32, s) for s in b]]) for b in batches]
+    with torch.inference_mode():
+        state = {}
+
+        def timeline():
+            x = device_preprocess(frames).to(pred.dtype).permute(0, 4, 1, 2, 3).contiguous()
+            state["tl"] = streaming_pyramid(pred.visual.backbone, x)
+
+        def front():
+            state["dense"] = dense_decoder_front(pred.visual.decoder, state["tl"],
+                                                 with_conv1=False)
+
+        def decode():
+            state["maps"] = [pred._decode(state["tl"], state["dense"], pred._starts(b), a)[: len(b)]
+                             for b, a in zip(batches, auds)]
+
+        def post():
+            for m in state["maps"]:
+                pred._post(m, size, True).cpu()
+
+        parts = [("timeline", timeline), ("dense_front", front), ("window_decode", decode),
+                 ("post", post)]
+        _part_times(torch, parts)
+        chunk_ms = _part_times(torch, parts)
+        chunk_profile = profile_device(torch, lambda: _part_times(torch, parts))
+    del pred, state
+    torch.cuda.empty_cache()
+    rec["streaming_chunk"] = {"part_ms": chunk_ms,
+                              "maps_per_s": 97 / sum(chunk_ms.values()) * 1e3,
+                              "device_idle_share": chunk_profile["device_idle_share"],
+                              "kernel_ms": chunk_profile["kernel_ms"],
+                              "top_kernels": chunk_profile["top_kernels"][:6]}
+    check(chunk_profile["kernel_ms"]["saliency_head"] > 0,
+          "the AV chunk profile credits no time to the head")
+
+    # (d) the multi-stream server: 4 streams x micro 32 against single streams (f32),
+    # then its bf16 rate and one serve step's device time
+    streams, micro, n = 4, 32, 96
+    frames = np.stack([_video_frames(np.random.default_rng(20 + s), n, size)
+                       for s in range(streams)])
+    wavs = [np.random.default_rng(30 + s).normal(0, 0.001, int(AV_FS * n / AV_FPS))
+            .astype(np.float32) for s in range(streams)]
+    spf = AV_FS / AV_FPS
+    cfg = dict(fps=AV_FPS, micro=micro, batch=micro, span=live_span(32, micro), device="cuda")
+
+    def feed_all(pred, fr, ws):
+        multi = fr.ndim == 5
+        got = []
+        for lo in range(0, n, micro):
+            chunk = [w[int(lo * spf): int((lo + micro) * spf)] for w in ws]
+            got += pred.feed(fr[:, lo:lo + micro] if multi else fr[lo:lo + micro],
+                             audio=chunk if multi else chunk[0])
+        got += pred.flush()
+        return got
+
+    multi32 = feed_all(AVMultiLiveServer(model, streams=streams, dtype=torch.float32, **cfg),
+                       frames, wavs)
+    multi_err = 0.0
+    for s in range(streams):
+        single = dict(feed_all(AVLiveStreamingPredictor(model, dtype=torch.float32, **cfg),
+                               frames[s], [wavs[s]]))
+        mine = [(i, m) for si, i, m in multi32 if si == s]
+        check([i for i, _ in mine] == list(range(n)), f"multi-stream stream {s} frames")
+        multi_err = max(multi_err, max(float(np.abs(m - single[i]).max()) for i, m in mine))
+    server = AVMultiLiveServer(model, streams=streams, **cfg)
+    feed_all(server, frames, wavs)  # warm-up: cuDNN picks its algorithms
+    server.reset()
+    got, seconds = counted("av_multi_live", lambda: feed_all(server, frames, wavs))
+    check(len(got) == streams * n, f"av multi-stream emitted {len(got)} maps")
+    for lo in range(0, 3 * micro, micro):  # refill the rolling buffers for the step's time
+        list(server.feed(frames[:, lo:lo + micro],
+                         audio=[w[int(lo * spf): int((lo + micro) * spf)] for w in wavs]))
+    with torch.inference_mode():
+        xs = torch.from_numpy(frames[:, :micro]).cuda()
+        starts = server._starts(list(range(micro)))
+        aud = server._audio([[np.zeros((70560, 1), np.float32)] * micro] * streams)
+        step = [("advance", lambda: server._advance(xs)),
+                ("window_decode", lambda: server._decode(*server._views(), starts, aud))]
+        _part_times(torch, step)
+        step_ms = _part_times(torch, step)
+    rec["multi_stream"] = {
+        "streams": streams, "micro": micro, "frames": n, "maps_per_s": streams * n / seconds,
+        "step_part_ms": step_ms, "step_maps_per_s": streams * micro / sum(step_ms.values()) * 1e3,
+        "f32_multi_vs_single_max_abs_err": multi_err, "tol": LIVE_MAX_TOL}
+    check(multi_err < LIVE_MAX_TOL, f"AV multi-stream vs single streams: max {multi_err}")
+    del server
+    torch.cuda.empty_cache()
+
+    # (e) streaming against parity agreement on the fixture suite
+    suite, seconds = counted("av_agreement", lambda: evaluate_av_agreement(
+        model, dtype=torch.bfloat16, batch=16, chunk=128, device="cuda"))
+    blob32 = evaluate_av_agreement(model, kinds=("blob",), dtype=torch.float32, batch=16,
+                                   chunk=128, device="cuda")
+    shift = suite["fixtures"][0]["agreement_cc"] - blob32["agreement_min"]
+    rec["agreement"] = {"bf16": suite, "blob_f32": blob32["agreement_min"],
+                        "blob_bf16_minus_f32": shift, "tol": AV_AGREEMENT_BF16_TOL,
+                        "seconds": seconds}
+    check(suite["fixtures"][0]["kind"] == "blob" and abs(shift) <= AV_AGREEMENT_BF16_TOL,
+          f"AV agreement on the blob kind: bf16 - f32 = {shift}")
+    check(all(np.isfinite(r["agreement_cc"]) for r in suite["fixtures"]), f"AV agreement {suite}")
+    rec.update({"launches": paths, "phase_seconds": time.perf_counter() - t_phase})
+    emit(rec)
+    print(f"av: agreement_min {suite['agreement_min']} agreement_mean {suite['agreement_mean']}",
+          flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1668,6 +1995,8 @@ def main() -> int:
                       **{f"cli_train_{k}": v["launches"] for k, v in train["cli"].items()}})
         torch.cuda.empty_cache()
         paths.update(phase_accuracy(torch, ck_dir)["launches"])
+    torch.cuda.empty_cache()
+    paths.update(phase_av(torch))
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():

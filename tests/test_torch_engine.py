@@ -166,6 +166,10 @@ def test_port_imports_neither_jax_nor_vinet_tpu():
     sources = sorted((REPO / "vinet_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels.py"]
     assert len(sources) > 10
+    names = {p.relative_to(REPO / "vinet_tpu_torch").as_posix() for p in sources[:-2]}
+    assert {"models/soundnet.py", "models/transformer.py", "models/avinet.py", "data/audio.py",
+            "cli/generate_result_audio_visual.py", "cli/generate_result_dave.py",
+            "cli/generate_theatre.py"} <= names
     for path in sources:
         for name in _imports(path):
             top = name.split(".")[0]

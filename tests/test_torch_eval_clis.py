@@ -148,11 +148,45 @@ def test_diem_val_prints_the_jax_metrics_of_its_maps(tmp_path, capsys):
 
 
 def test_use_sound_raises(tmp_path):
+    """diem_val --use_sound True builds AViNet and, asked for the card where
+    there is none, raises before reading the data (it runs on the CPU in
+    test_use_sound_matches_the_predictor)."""
     from vinet_tpu_torch.cli.diem_val import main
 
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
     data, _ = make_sound_dataset(str(tmp_path / "data"), n_videos=1, n_frames=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        main(["--path_data", data, "--device", "cpu", "--use_sound", "True"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--path_data", data, "--device", "cuda", "--use_sound", "True"])
+
+
+def test_use_sound_matches_the_predictor(tmp_path, capsys):
+    """diem_val --use_sound True on the CPU: the per-frame averages of the AV
+    predictor's maps with the video's audio excerpts."""
+    from vinet_tpu_torch.cli.common import build_model
+    from vinet_tpu_torch.cli.diem_val import build_parser, main
+    from vinet_tpu_torch.data.audio import audio_excerpt, build_audio_index
+    from vinet_tpu_torch.inference import SlidingWindowPredictor
+    from vinet_tpu_torch.io.images import load_frame
+    from vinet_tpu_torch.metrics import cc_score
+
+    data, (name,) = make_sound_dataset(str(tmp_path / "data"), n_videos=1, n_frames=63,
+                                       size=(32, 32))
+    argv = ["--path_data", data, "--device", "cpu", "--use_sound", "True", "--clip_size", "32",
+            "--input_h", "32", "--input_w", "32", "--dtype", "float32", "--window_batch", "16"]
+    assert main(argv) == 0
+    got = capsys.readouterr().out.splitlines()
+    args = build_parser().parse_args(argv)
+    pred = SlidingWindowPredictor(build_model(args), batch=16, dtype=torch.float32, device="cpu")
+    info = build_audio_index([name], {name: 63}, {name: 10.0}, join(data, "video_audio", "DIEM"),
+                             gt_root=join(data, "annotations", "DIEM"))[name]
+    fdir = join(data, "video_frames", "DIEM", name)
+    clip = np.stack([load_frame(join(fdir, f), size=(32, 32))[0] for f in sorted(os.listdir(fdir))])
+    annot = join(data, "annotations", "DIEM", name)
+    cc = [cc_score(m, load_map(join(annot, "maps", "eyeMap_%05d.jpg" % (i + 1))))
+          for i, m in pred.predict_video(clip, out_size=(32, 32),
+                                         audio_fn=lambda s: audio_excerpt(info, 32, s))]
+    assert len(cc) == 63 and f"cc: {np.mean(cc):.4f}" in got
 
 
 @pytest.mark.parametrize("cli", ["evaluate_dhf1k", "eval_diem", "diem_val", "export_checkpoint"])

@@ -2,7 +2,8 @@
 
 Inputs are made with numpy and handed to both packages; JAX stays on the CPU
 and never calls ViNet.init (too slow at full width on the CPU): parameter
-trees come from the committed fixture checkpoint or from jax.eval_shape.
+trees come from the committed fixture checkpoint or from jax.eval_shape;
+AViNet's from the port's seeded model, exported and read by JAX's converter.
 """
 
 from __future__ import annotations
@@ -138,3 +139,70 @@ def build_jax_emd(workdir) -> "ctypes.CDLL":
         ctypes.c_double, ctypes.c_double, ctypes.POINTER(ctypes.c_double),
     ]
     return lib
+
+
+def av_trees(use_transformer: bool = False, input_hw=(64, 96), seed: int = 0):
+    """(JAX AViNet(3, 32), params, state) of the model the card runs
+    (``vinet_tpu_torch/inference/accuracy.py::av_fixture_model``: the visual
+    leaves from the fixture, the audio and fusion leaves from a numpy seed
+    by ``seeded_av_leaves``' convention), exported in the reference's layout
+    and read by the JAX package's ``torch_state_dict_to_trees``, as a user's
+    checkpoint would be. JAX's init is never called."""
+    import io
+
+    from vinet_tpu.io.convert import torch_state_dict_to_trees
+    from vinet_tpu.models import AViNet
+    from vinet_tpu_torch.inference.accuracy import av_fixture_model
+    from vinet_tpu_torch.io.export import export_torch_checkpoint
+
+    buf = io.BytesIO()
+    export_torch_checkpoint(buf, av_fixture_model(FIXTURE, seed=seed,
+                                                  use_transformer=use_transformer,
+                                                  input_hw=input_hw))
+    buf.seek(0)
+    params, state = torch_state_dict_to_trees(torch.load(buf, weights_only=True))
+    return AViNet(use_transformer=use_transformer, input_hw=tuple(input_hw)), params, state
+
+
+def port_avinet(model, params: dict, state: dict):
+    """The port's AViNet of the JAX model's flags with the trees' weights
+    (strict), f32, eval mode, BatchNorm unfolded."""
+    from vinet_tpu_torch.io.weights import from_jax_trees
+    from vinet_tpu_torch.models import AViNet
+
+    port = AViNet(use_transformer=model.use_transformer,
+                  transformer_in_channel=model.transformer_in_channel,
+                  num_encoder_layers=model.num_encoder_layers, nhead=model.nhead,
+                  clip_size=model.clip_size, input_hw=model.input_hw)
+    port.load_state_dict(from_jax_trees(params, state), strict=True)
+    return port.eval().float()
+
+
+def jax_folded(params: dict, state: dict):
+    """The JAX package's fold_batchnorms of the trees, jitted (eagerly, a
+    full-width tree takes some 10 s on the CPU)."""
+    import jax
+
+    from vinet_tpu.models.inference import fold_batchnorms
+
+    return jax.jit(fold_batchnorms)(params, state)
+
+
+def trees_as_arguments(predictor, name: str, fn) -> None:
+    """Put into a JAX-package predictor's jit cache, under name, fn (one of
+    its own unjitted `_build_*` functions, which read predictor.params and
+    .state when traced) jitted with the trees as arguments instead of
+    program constants: the same program, which XLA's constant folding of the
+    weights would otherwise take tens of seconds to compile on the CPU."""
+    import jax
+
+    def run(params, state, *args):
+        saved = predictor.params, predictor.state
+        predictor.params, predictor.state = params, state
+        try:
+            return fn(*args)
+        finally:
+            predictor.params, predictor.state = saved
+
+    jitted = jax.jit(run)
+    predictor._jitted[name] = lambda *args: jitted(predictor.params, predictor.state, *args)

@@ -1,4 +1,5 @@
-"""ViNet video saliency in PyTorch with hand-written CUDA kernels for Hopper.
+"""ViNet and AViNet video saliency in PyTorch with hand-written CUDA kernels
+for Hopper.
 
 The JAX package ``vinet_tpu`` is the reference this package is held against;
 nothing here imports it. Layout inside the model is NCDHW (``nn.Conv3d``'s);
@@ -27,6 +28,14 @@ The serving paths run the S3D backbone once per frame on phase timelines
 ``LiveStreamingPredictor``, ``--live``) and batch many streams in one
 pipeline (``inference/serving.py``: ``MultiLiveServer``, ``cli/serve.py``).
 Every decode ends in the head kernel's fused mode.
+
+The audio-visual AViNet (``models/avinet.py``: SoundNet, the bilinear
+fusion and the optional refinement encoder on the visual model's y0) runs on
+the same paths with each window's audio excerpt (``data/audio.py``):
+``SlidingWindowPredictor(..., audio_fn=...)``, ``AVStreamingPredictor``,
+``AVLiveStreamingPredictor``, ``AVMultiLiveServer`` and the CLIs
+``generate_result_audio_visual``, ``generate_result_dave`` and
+``generate_theatre``; its decodes end in the same head kernel.
 
 Training (``training/``, ``cli/train.py``) runs the model in training mode:
 BatchNorm on batch statistics and the decoder's plain differentiable graph,

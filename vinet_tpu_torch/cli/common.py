@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: boolean and model flags, model building with
-weights, sharding."""
+"""Shared CLI plumbing: boolean and model flags, model building (ViNet or
+AViNet) with weights, sharding."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import argparse
 import torch
 
 from vinet_tpu_torch.io.weights import load_model_weights
-from vinet_tpu_torch.models import ViNet
+from vinet_tpu_torch.models import AViNet, ViNet
 
 
 def str2bool(v) -> bool:
@@ -29,18 +29,18 @@ def add_bool_flag(parser, name: str, default: bool, help: str | None = None) -> 
 
 
 def add_model_args(parser):
-    """The JAX package's model flags, so its command lines parse here; the
-    audio-visual ones (--use_sound True and its transformer's) wait for the
-    audio-visual slice."""
+    """The JAX package's model flags (``vinet_tpu/cli/common.py:30-41``)."""
     parser.add_argument("--clip_size", type=int, default=32)
     parser.add_argument("--num_hier", type=int, default=3)
-    no_effect = "parsed only; no effect until AViNet lands (ROADMAP.md queue 1 item 5)"
-    parser.add_argument("--nhead", type=int, default=4, help=no_effect)
-    parser.add_argument("--num_encoder_layers", type=int, default=3, help=no_effect)
-    parser.add_argument("--transformer_in_channel", type=int, default=32, help=no_effect)
-    add_bool_flag(parser, "use_sound", False,
-                  help="True raises: AViNet waits for ROADMAP.md queue 1 item 5")
-    add_bool_flag(parser, "use_transformer", False, help=no_effect)
+    parser.add_argument("--nhead", type=int, default=4,
+                        help="AViNet's refinement encoder: attention heads")
+    parser.add_argument("--num_encoder_layers", type=int, default=3,
+                        help="AViNet's refinement encoder: layers")
+    parser.add_argument("--transformer_in_channel", type=int, default=32,
+                        help="AViNet's refinement encoder: channels, its tokens")
+    add_bool_flag(parser, "use_sound", False, help="AViNet (audio-visual) instead of ViNet")
+    add_bool_flag(parser, "use_transformer", False,
+                  help="AViNet with the self-attention refinement of the fused y0")
     parser.add_argument("--input_h", type=int, default=224,
                         help="model input height (reference fixed 224)")
     parser.add_argument("--input_w", type=int, default=384,
@@ -51,17 +51,21 @@ def model_input_size(args) -> tuple:
     return (args.input_h, args.input_w)
 
 
-def build_model(args) -> ViNet:
-    """ViNet for the flags, with --file_weight loaded strictly (an S3D
-    Kinetics-400 file into the backbone alone); without weights (the string
-    "None" included, as reference command lines pass it), a random init
-    from seed 0. --use_sound True raises: AViNet is not ported yet."""
-    if getattr(args, "use_sound", False):
-        raise NotImplementedError(
-            "--use_sound True needs AViNet, which the port does not have yet "
-            "(ROADMAP.md queue 1 item 5, audio-visual)")
+def build_model(args):
+    """ViNet, or AViNet for --use_sound True, for the flags, with
+    --file_weight loaded strictly (an S3D Kinetics-400 file into the
+    backbone alone, a SoundNet file into AViNet's audionet alone); without
+    weights (the string "None" included, as reference command lines pass
+    it), a random init from seed 0."""
     torch.manual_seed(0)
-    model = ViNet(num_hier=args.num_hier, clip_size=args.clip_size)
+    if getattr(args, "use_sound", False):
+        model = AViNet(use_transformer=args.use_transformer,
+                       transformer_in_channel=args.transformer_in_channel,
+                       num_encoder_layers=args.num_encoder_layers, nhead=args.nhead,
+                       num_hier=args.num_hier, clip_size=args.clip_size,
+                       input_hw=model_input_size(args))
+    else:
+        model = ViNet(num_hier=args.num_hier, clip_size=args.clip_size)
     path = getattr(args, "file_weight", None)
     if has_weights(path):
         load_model_weights(model, path)

@@ -1,13 +1,13 @@
 """Fused inference and evaluation over a STAViS-layout dataset
-(``vinet_tpu/cli/diem_val.py``, the visual route; the reference's
-diem_val.py).
+(``vinet_tpu/cli/diem_val.py``; the reference's diem_val.py).
 
 Per video of the fold list: sliding-window prediction with the flipped
 warm-up windows (``SlidingWindowPredictor``, every decode ending in the
 fused head kernel on the card), then per-frame SIM, CC, NSS and AUC-Judd
 against eyeMap_%05d.jpg and the binary fixations of fixMap_%05d.mat
 (scipy.io), printed as per-frame and per-video averages. --use_sound True
-(AViNet with the video's audio) waits for the audio-visual slice and raises.
+runs AViNet, each window with its excerpt of
+<path_data>/video_audio/<DS>/<video>/<video>.wav (``data/audio.py``).
 
 Usage:
   python -m vinet_tpu_torch.cli.diem_val --path_data ROOT --dataset DIEM \\
@@ -49,6 +49,7 @@ def run(args) -> int:
     from vinet_tpu_torch.cli.common import build_model, model_input_size, shard_video_list
     from vinet_tpu_torch.cli.eval_diem import _load_fixmap
     from vinet_tpu_torch.cli.generate_result import DTYPES
+    from vinet_tpu_torch.data.audio import audio_excerpt, build_audio_index
     from vinet_tpu_torch.data.datasets import read_fold_list
     from vinet_tpu_torch.inference import SlidingWindowPredictor
     from vinet_tpu_torch.io.images import load_frame, load_map
@@ -66,6 +67,15 @@ def run(args) -> int:
     videos = shard_video_list(sorted(data["names"]), args.start_idx, args.num_parts)
     if args.max_videos:
         videos = videos[: args.max_videos]
+    fps = dict(zip(data["names"], data["fps"]))
+
+    audio_index = {}
+    if args.use_sound:
+        nframes = {v: len(os.listdir(join(args.path_data, "video_frames", args.dataset, v)))
+                   for v in videos}
+        audio_index = build_audio_index(
+            videos, nframes, fps, join(args.path_data, "video_audio", args.dataset),
+            gt_root=join(args.path_data, "annotations", args.dataset))
 
     frame_totals = {k: [] for k in ("sim", "cc", "nss", "aucj")}
     video_means = {k: [] for k in ("sim", "cc", "nss", "aucj")}
@@ -80,8 +90,14 @@ def run(args) -> int:
         clip_u8 = np.stack([d[0] for d in decoded])
         orig_w, orig_h = decoded[0][1]
 
+        audio_fn = None
+        if args.use_sound:
+            info = audio_index.get(v)
+            audio_fn = lambda start, _info=info: audio_excerpt(_info, args.clip_size, start)
+
         per = {k: [] for k in frame_totals}
-        for frame_idx, smap in predictor.predict_video(clip_u8, out_size=(orig_h, orig_w)):
+        for frame_idx, smap in predictor.predict_video(clip_u8, out_size=(orig_h, orig_w),
+                                                       audio_fn=audio_fn):
             fno = frame_idx + 1
             gt_path = join(annt, "eyeMap_%05d.jpg" % fno)
             if not os.path.exists(gt_path):

@@ -1,8 +1,9 @@
 """Export weights as a reference-compatible torch ``.pt`` state_dict
 (``vinet_tpu/cli/export_checkpoint.py``).
 
-The model is built from the flags, then loaded from --file_weight (a
-JAX-package ``.npz`` or a reference ``.pt``) or from a train checkpoint of
+The model (ViNet, or AViNet with --use_sound True) is built from the flags,
+then loaded from --file_weight (a JAX-package ``.npz`` or a reference
+``.pt``) or from a train checkpoint of
 ``cli.train`` (--checkpoint_dir, the port's ``io/checkpoint.py`` files, with
 --step, default the latest), strictly: a checkpoint that does not match the
 flags fails. The reference's classes load the output strictly.
@@ -12,6 +13,8 @@ Usage:
       --checkpoint_dir ckpts/ --output vinet_export.pt
   python -m vinet_tpu_torch.cli.export_checkpoint \\
       --file_weight weights.npz --output vinet.pt
+  python -m vinet_tpu_torch.cli.export_checkpoint \\
+      --file_weight avinet.npz --use_sound True --output avinet.pt
 """
 
 from __future__ import annotations

@@ -156,6 +156,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.live and (args.streaming or args.pad_short):
         parser.error("--live excludes --streaming and --pad_short")
+    if args.use_sound:
+        parser.error("--use_sound True: AViNet runs in generate_result_audio_visual")
     return run(args)
 
 

@@ -126,7 +126,11 @@ def run(args) -> int:
 
 
 def main(argv=None):
-    return run(build_parser().parse_args(argv))
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.use_sound:
+        parser.error("--use_sound True: AViNet runs in generate_result_audio_visual")
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -101,6 +101,9 @@ def check_supported(args) -> None:
     if args.dataset == "SoundDataset":
         raise SystemExit("--dataset SoundDataset (audio-visual) is not ported to "
                          "vinet_tpu_torch yet")
+    if args.use_sound:
+        raise SystemExit("--use_sound True (audio-visual training) is not ported to "
+                         "vinet_tpu_torch yet")
     if args.batch_size % args.grad_accum:
         raise SystemExit("--batch_size must be divisible by --grad_accum")
     if args.streaming_ft:

@@ -10,6 +10,10 @@ A video's frames go to the device once, as uint8; windows are gathered there
 by index (a flipped window is its index row reversed) and run ``batch`` at a
 time: normalise, model, resize every map to the native size, Gaussian blur
 and optionally quantise to uint8. The host only decodes and encodes PNGs.
+
+For AViNet, ``audio_fn(start)`` gives each window its (L, 1) excerpt: on the
+device it is cast to the compute dtype and, for a warm-up window, reversed
+along the samples next to its clip; padded batch rows get zero audio.
 """
 
 from __future__ import annotations
@@ -61,8 +65,9 @@ def window_plan(n_frames: int, clip_size: int, *, pad_short: bool = False) -> li
 class SlidingWindowPredictor:
     def __init__(self, model: torch.nn.Module, *, clip_size: int = 32, batch: int = 16,
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
-        """model: a ViNet with its weights loaded (or any module mapping
-        (B, T, H, W, 3) clips to (B, H, W) maps). The predictor prepares a
+        """model: a ViNet or AViNet with its weights loaded (or any module
+        mapping (B, T, H, W, 3) clips [and (B, L, 1) audio] to (B, H, W)
+        maps). The predictor prepares a
         copy of it (BatchNorms folded, cast to dtype, moved to device, eval
         mode) and leaves the caller's model as it is, as the JAX predictors
         leave (params, state)."""
@@ -74,21 +79,30 @@ class SlidingWindowPredictor:
 
     @torch.inference_mode()
     def run_batch(self, frames: torch.Tensor, idx: torch.Tensor, out_hw: tuple,
-                  quantize_u8: bool) -> torch.Tensor:
-        """frames (N, H, W, 3) uint8 and idx (B, T) on the device -> (B,
-        out_h, out_w) blurred maps, f32 or uint8."""
+                  quantize_u8: bool, audio: torch.Tensor | None = None,
+                  flip: torch.Tensor | None = None) -> torch.Tensor:
+        """frames (N, H, W, 3) uint8 and idx (B, T) on the device [audio (B,
+        L, 1) and flip (B,) bool, the warm-up rows] -> (B, out_h, out_w)
+        blurred maps, f32 or uint8."""
         x = device_preprocess(frames[idx]).to(self.dtype)
-        maps = self.model(x).float()
+        if audio is None:
+            maps = self.model(x).float()
+        else:
+            audio = audio.to(self.dtype)
+            audio = torch.where(flip[:, None, None], audio.flip(1), audio)
+            maps = self.model(x, audio).float()
         if tuple(out_hw) != tuple(maps.shape[1:]):
             maps = resize_bilinear(maps, *out_hw)
         maps = gaussian_blur(maps, ksize=BLUR_KSIZE)
         return quantize_maps_u8(maps) if quantize_u8 else maps
 
     def predict_video(self, frames_u8: np.ndarray, *, out_size=None, pad_short=False,
-                      quantize_u8=False):
+                      audio_fn=None, quantize_u8=False):
         """frames_u8: (N, H, W, 3) uint8 model-sized frames. Yields
         (frame_index, map (out_h, out_w)) for every predictable frame; the map
-        is float32, or uint8 with quantize_u8."""
+        is float32, or uint8 with quantize_u8. audio_fn(start) -> (L, 1)
+        float32: the excerpt of the window starting at that frame of the
+        video, for AViNet."""
         n = frames_u8.shape[0]
         t = self.clip_size
         offset = 0
@@ -121,7 +135,16 @@ class SlidingWindowPredictor:
                 row = np.arange(task.start, task.start + t)
                 idx[j] = row[::-1] if task.flipped else row
             idx_d = torch.from_numpy(idx).to(self.device)
-            pending.append((chunk, self.run_batch(frames, idx_d, out_hw, quantize_u8)))
+            audio = flip = None
+            if audio_fn is not None:
+                exc = [audio_fn(max(0, task.start - offset)) for task in chunk]
+                audio = np.zeros((self.batch, *exc[0].shape), np.float32)
+                audio[: len(chunk)] = np.stack(exc)
+                audio = torch.from_numpy(audio).to(self.device)
+                flip = torch.tensor([task.flipped for task in chunk]
+                                    + [False] * (self.batch - len(chunk)), device=self.device)
+            pending.append((chunk, self.run_batch(frames, idx_d, out_hw, quantize_u8,
+                                                  audio, flip)))
             if len(pending) >= FETCH_EVERY:
                 yield from flush()
         if pending:

@@ -1,6 +1,6 @@
 """Live incremental streaming inference: frames are fed as they arrive and
 every frame gets a map, with a constant lag and O(1) work per frame,
-``vinet_tpu/inference/live.py`` (visual ViNet) in NCDHW.
+``vinet_tpu/inference/live.py`` in NCDHW.
 
 The dense phase timelines of ``inference/streaming.py`` advance by
 overlap-save: the backbone is cut into segments where ``streaming_pyramid``
@@ -20,6 +20,11 @@ the reference) come from one flipped chunked-timeline pass once
 All state carries ``streams`` streams in its batch axis, stream-major; the
 single-stream predictor has one, ``inference/serving.py::MultiLiveServer``
 several. Rolling buffers and tails live on the predictor's device.
+
+``AVLiveStreamingPredictor`` serves AViNet: the visual timelines advance as
+for ViNet (audio never reaches the backbone), and each stream's samples go
+into a rolling host buffer from which every decoded window takes its excerpt,
+equal to ``data/audio.py::audio_excerpt`` (reversed for the warm-up windows).
 """
 
 from __future__ import annotations
@@ -29,9 +34,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vinet_tpu_torch.data.audio import windowed_excerpt
 from vinet_tpu_torch.data.pipeline import device_preprocess
-from vinet_tpu_torch.inference.streaming import (MAXP3_DENSE, MAXT4_DENSE, StreamingPredictor,
-                                                 _split_time, valid_tconv)
+from vinet_tpu_torch.inference.streaming import (MAXP3_DENSE, MAXT4_DENSE, AVStreamingPredictor,
+                                                 StreamingPredictor, _split_time, valid_tconv)
 from vinet_tpu_torch.models.layers import BasicConv3d, SepConv3d
 from vinet_tpu_torch.models.s3d import InceptionBlock
 
@@ -138,7 +144,7 @@ class LiveStreamingPredictor(StreamingPredictor):
         # when the warm-up pass ends
         if span < self.warmup_chunk + 8:
             raise ValueError(f"span {span} must be >= warmup_chunk + 8")
-        bb = self.model.backbone
+        bb = self.visual.backbone
         stem, pool1, b1x1, sep192 = bb.base1
         self._segments = {  # key: (module, tail length)
             "A": (stem, _TAIL_A), "B": (nn.Sequential(pool1, b1x1, sep192), _TAIL_B),
@@ -170,12 +176,13 @@ class LiveStreamingPredictor(StreamingPredictor):
         self._bufs = {"y3": z(2, 192, span // 2, 4), "y2": z(2, 480, span // 2, 8),
                       "y1": z(4, 832, span // 4, 16), "y0": z(8, 1024, span // 8, 32)}
         if self.v2:
-            dec = self.model.decoder
+            dec = self.visual.decoder
             self._bufs.update({
-                "c1u": z(8, dec.convtsp1[0].out_channels, span // 8, 16),
                 "c2y": z(4, dec.convtsp2[0].out_channels, span // 4, 16),
                 "c3y": z(2, dec.convtsp3[0].out_channels, span // 2, 8),
                 "c4y": z(2, dec.convtsp4[0].out_channels, span // 2, 4)})
+            if self.dense_conv1:
+                self._bufs["c1u"] = z(8, dec.convtsp1[0].out_channels, span // 8, 16)
 
     # ----------------------------------------------------------- advance --
     def _seg(self, key: str, new: torch.Tensor, keep_oldest: int | None = None) -> torch.Tensor:
@@ -198,7 +205,7 @@ class LiveStreamingPredictor(StreamingPredictor):
         y1n = self._seg("D2", d1)
         e1 = _split_time(self._seg("E1", y1n, keep_oldest=y1n.shape[2]), s)  # (8S, F/8)
         # the spatial maxp4 is pointwise in time: before E2's tail (4x smaller)
-        y0n = self._seg("E2", self.model.backbone.maxp4(e1))
+        y0n = self._seg("E2", self.visual.backbone.maxp4(e1))
         news = {"y3": y3n, "y2": y2n, "y1": y1n, "y0": y0n}
         if self.v2:
             news.update(self._dense_front_new(news))
@@ -210,8 +217,8 @@ class LiveStreamingPredictor(StreamingPredictor):
         over its timeline, so its newest positions need the last kt-1
         buffered timeline positions and the new ones (read before the
         shift)."""
-        dec = self.model.decoder
-        out = {"c1u": dec.convtsp1(news["y0"])}
+        dec = self.visual.decoder
+        out = {"c1u": dec.convtsp1(news["y0"])} if self.dense_conv1 else {}
         for key, src, conv in (("c2y", "y1", dec.convtsp2[0]), ("c3y", "y2", dec.convtsp3[0]),
                                ("c4y", "y3", dec.convtsp4[0])):
             kt = conv.kernel_size[0]
@@ -223,7 +230,7 @@ class LiveStreamingPredictor(StreamingPredictor):
     def _views(self):
         v = {k: self._bufs[k][:, :, off:] for k, off in _VIEW_OFF.items() if k in self._bufs}
         timelines = (v["y0"], v["y1"], v["y2"], v["y3"])
-        return timelines, ((v["c1u"], v["c2y"], v["c3y"], v["c4y"]) if self.v2 else None)
+        return timelines, ((v.get("c1u"), v["c2y"], v["c3y"], v["c4y"]) if self.v2 else None)
 
     def _emittable(self) -> int:
         """Frames (exclusive) decodable from the advanced timelines: frame i's
@@ -238,10 +245,15 @@ class LiveStreamingPredictor(StreamingPredictor):
             lim.append(2 * (_NEWEST["y3"](n) - 4 - 11) + t - 1 + 1)
         return max(0, min(lim) + 1)
 
-    def _emit(self, tl, dense, starts: list, frames: list):
+    def _window_audio(self, starts: list, flipped: bool):
+        """The windows' audio, for the window start frames of the streams
+        (AVLiveStreamingPredictor); the visual model takes none."""
+        return None
+
+    def _emit(self, tl, dense, starts: list, frames: list, audio=None):
         """Decode one window batch of every stream; yields (stream, frame,
         map) for the real windows."""
-        maps = self._decode(tl, dense, self._starts(starts))
+        maps = self._decode(tl, dense, self._starts(starts), audio)
         maps = maps.reshape(self.streams, self.batch, *maps.shape[1:])[:, : len(frames)]
         out = self._post(maps.reshape(-1, *maps.shape[2:]), self._out_hw, self._quantize_u8)
         out = out.reshape(self.streams, len(frames), *out.shape[1:]).cpu().numpy()
@@ -262,7 +274,8 @@ class LiveStreamingPredictor(StreamingPredictor):
             if min(starts) < 0:
                 raise RuntimeError(f"frame {group[0]}'s window fell off the rolling buffers: "
                                    "increase span or drain feed() faster")
-            yield from self._emit(*self._views(), starts, group)
+            yield from self._emit(*self._views(), starts, group,
+                                  self._window_audio([g - t + 1 for g in group], flipped=False))
             self._next_emit = group[-1] + 1
 
     def _emit_warmup(self):
@@ -273,7 +286,8 @@ class LiveStreamingPredictor(StreamingPredictor):
         tl, dense = self._timeline(frames, flip=True)
         for lo in range(0, t - 1, self.batch):
             group = list(range(lo, min(t - 1, lo + self.batch)))
-            yield from self._emit(tl, dense, [wc - t - f for f in group], group)
+            yield from self._emit(tl, dense, [wc - t - f for f in group], group,
+                                  self._window_audio(group, flipped=True))
         self._warmed = True
         self._early = []
 
@@ -351,3 +365,102 @@ class LiveStreamingPredictor(StreamingPredictor):
         raise NotImplementedError(
             "LiveStreamingPredictor is a feed()/flush() server; use "
             "StreamingPredictor for stored videos")
+
+
+class AVLiveStreamingPredictor(AVStreamingPredictor, LiveStreamingPredictor):
+    """Live serving for AViNet (``vinet_tpu/inference/live.py:505-598``).
+    Feed each stream's samples with its frames:
+
+        live = AVLiveStreamingPredictor(model, fps=30.0, micro=16)
+        for frames, samples in source:
+            for idx, smap in live.feed(frames, audio=samples): ...
+        for idx, smap in live.flush(): ...
+
+    ``audio`` is the 1-D chunk of mono samples that arrived since the last
+    feed, at ``audio_fs`` Hz and the reference's raw 2^-23 scale
+    (``data/audio.py::load_wav_raw``). Frames and samples meet on the stream
+    clock: frame f covers the samples around (f - 1) / fps · fs, as in
+    ``frame_sample_ranges``. Maps lag the input by the pipeline's constant,
+    so a window's excerpt is complete when it is decoded; a stream fed no
+    audio gets zero excerpts, the reference's missing-wav behaviour. Samples
+    no future window reads are dropped after each feed and each step of the
+    flush; an excerpt that has fallen off the buffer raises."""
+
+    def __init__(self, model, *, fps: float | None = None, audio_fs: int = 22050, **kw):
+        if audio_fs <= 0:
+            raise ValueError(f"audio_fs must be positive, got {audio_fs}")
+        self.fps = float(fps) if fps else None
+        self.audio_fs = int(audio_fs)
+        super().__init__(model, **kw)
+
+    def _reset(self):
+        super()._reset()
+        self._samples = [np.zeros((0,), np.float32) for _ in range(self.streams)]
+        self._samples_base = [0] * self.streams  # global index of each buffer's first sample
+
+    def start(self, out_size=None, quantize_u8=False, fps=None):
+        super().start(out_size, quantize_u8)
+        if fps:
+            self.fps = float(fps)
+
+    def _take_audio(self, audio) -> None:
+        """audio: one 1-D chunk of samples per stream, or None."""
+        if not self.fps:
+            raise ValueError("set fps (constructor or start()) before feeding")
+        if audio is None:
+            return
+        if len(audio) != self.streams:
+            raise ValueError(f"{len(audio)} audio chunks for {self.streams} streams")
+        for s, a in enumerate(audio):
+            self._samples[s] = np.concatenate(
+                [self._samples[s], np.asarray(a, np.float32).reshape(-1)])
+
+    def feed(self, frames_u8: np.ndarray, audio=None):
+        """Feed (k, H, W, 3) uint8 frames (k may be 0) and the samples that
+        arrived with them; yields every (frame, map) that became final."""
+        self._take_audio(None if audio is None else [audio])
+        yield from LiveStreamingPredictor.feed(self, frames_u8)
+
+    def _feed(self, frames_u8: np.ndarray):
+        """The visual step, then the trim: after every feed and after every
+        repeated-frame step of the flush, as JAX's server trims."""
+        yield from super()._feed(frames_u8)
+        self._trim_audio()
+
+    def _trim_audio(self) -> None:
+        """Drop the samples no future window reads: the oldest window still
+        to emit starts at _next_emit - T + 1, less one frame of slack."""
+        if not self._warmed:
+            return  # the warm-up windows reach back to sample 0
+        spf = self.audio_fs / self.fps
+        lo = max(0, int((self._next_emit - self.clip_size) * spf - spf))
+        for s in range(self.streams):
+            drop = lo - self._samples_base[s]
+            if drop > 0:
+                self._samples[s] = self._samples[s][drop:]
+                self._samples_base[s] = lo
+
+    def _excerpt(self, s: int, start: int) -> np.ndarray:
+        """Stream s's excerpt for the window starting at frame start:
+        ``audio_excerpt`` over the rolling buffer, with the samples received
+        so far as the end clamp. The float expressions are
+        frame_sample_ranges', so int() truncates to the same sample."""
+        fs, fps = self.audio_fs, self.fps
+        spf = fs / fps
+        base, samples = self._samples_base[s], self._samples[s]
+        t0 = start * (1.0 / fps) * fs
+        t1 = (start + self.clip_size - 1) * (1.0 / fps) * fs
+        lo = int(max(0.0, t0 - spf / 2))
+        hi = int(min(base + samples.shape[0], t1 + spf / 2))
+        if lo < base:
+            raise RuntimeError(f"stream {s}: the excerpt from sample {lo} fell off the rolling "
+                               f"sample buffer (it starts at {base})")
+        return windowed_excerpt(samples[lo - base: hi + 1 - base])
+
+    def _window_audio(self, starts: list, flipped: bool) -> torch.Tensor:
+        """(S·batch, 70560, 1) excerpts of every stream for the window start
+        frames, reversed for the warm-up windows; padded rows are zeros."""
+        exc = [[self._excerpt(s, st) for st in starts] for s in range(self.streams)]
+        if flipped:
+            exc = [[e[::-1] for e in row] for row in exc]
+        return self._audio(exc)

@@ -1,5 +1,6 @@
 """Multi-stream live serving: S synchronized video streams on one card,
-``vinet_tpu/inference/serving.py::MultiLiveServer`` (visual ViNet).
+``vinet_tpu/inference/serving.py`` (``MultiLiveServer`` for ViNet,
+``AVMultiLiveServer`` for AViNet).
 
 The JAX package vmaps the single-stream functions over a stream axis; here
 the stream axis is folded into the batch axis. The advance runs the backbone
@@ -17,13 +18,18 @@ frame and the padding's maps dropped.
     for frames in source:                      # (S, k, H, W, 3) uint8
         for s, idx, smap in server.feed(frames): ...
     for s, idx, smap in server.flush(): ...
+
+``AVMultiLiveServer`` keeps one rolling sample buffer a stream
+(``inference/live.py::AVLiveStreamingPredictor``'s) and folds the streams'
+windows and their excerpts into the decode batch stream-major, as the
+frames are.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from vinet_tpu_torch.inference.live import LiveStreamingPredictor
+from vinet_tpu_torch.inference.live import AVLiveStreamingPredictor, LiveStreamingPredictor
 
 
 class MultiLiveServer(LiveStreamingPredictor):
@@ -49,3 +55,20 @@ class MultiLiveServer(LiveStreamingPredictor):
     def flush(self):
         """Drain: each stream repeats its own last frame."""
         yield from self._flush()
+
+
+class AVMultiLiveServer(AVLiveStreamingPredictor, MultiLiveServer):
+    """S synchronized AViNet live streams:
+
+        server = AVMultiLiveServer(model, streams=4, fps=30.0, micro=16)
+        for frames, samples in source:    # (S, k, H, W, 3), S sample chunks
+            for s, idx, smap in server.feed(frames, audio=samples): ...
+        for s, idx, smap in server.flush(): ...
+    """
+
+    def feed(self, frames_u8: np.ndarray, audio=None):
+        """Feed (S, k, H, W, 3) uint8 frames and, per stream, the 1-D chunk
+        of samples that arrived with them (None: no audio this time);
+        yields every (stream, frame, map) that became final."""
+        self._take_audio(audio)
+        yield from MultiLiveServer.feed(self, frames_u8)

@@ -1,6 +1,6 @@
-"""Streaming whole-video inference for ViNet: the S3D backbone runs once over
-the video timeline instead of once per sliding window,
-``vinet_tpu/inference/streaming.py`` (visual ViNet) in NCDHW.
+"""Streaming whole-video inference for ViNet and AViNet: the S3D backbone
+runs once over the video timeline instead of once per sliding window,
+``vinet_tpu/inference/streaming.py`` in NCDHW.
 
 Every temporally strided op (the stem's conv_t s2, maxp3 s2, maxt4 s2) runs
 DENSE (stride 1) and its output is split into even/odd phase timelines,
@@ -21,6 +21,12 @@ stream-major, and ``_split_time`` keeps the phase split inside each stream,
 so one backbone call and one decode serve S streams
 (``inference/serving.py``). Every decode ends in the decoder's head, the
 fused head kernel on the card (``ops/saliency_head.py``).
+
+``AVStreamingPredictor`` shares the visual timelines the same way; audio
+enters per window: SoundNet on the window's excerpt and the fusion into the
+window's y0 (``AViNet.fuse``), so conv1 runs windowed on the fused y0 and the
+dense front has no conv1 series. y1, y2 and y3 carry no audio, so their
+dense series serve the AV decode as they are.
 """
 
 from __future__ import annotations
@@ -115,12 +121,18 @@ def _gather(t: torch.Tensor, phases: int, p: torch.Tensor, base: torch.Tensor, c
     return g.transpose(2, 3).reshape(s * p.shape[0], t.shape[1], count, *t.shape[3:])
 
 
+def gather_y0(y0t: torch.Tensor, starts: torch.Tensor, clip_size: int = 32) -> torch.Tensor:
+    """The windows' y0 slices of the y0 timelines, batched (stream, window)."""
+    *_, p0, s3 = _phases(starts)
+    return _gather(y0t, 8, p0, s3, clip_size // 8)
+
+
 def gather_windows(timelines, starts: torch.Tensor, clip_size: int = 32) -> list:
     """Per-window pyramid slices [y0, y1, y2, y3] of the phase timelines at
     the window starts (Bw,), batched (stream, window)."""
     y0t, y1t, y2t, y3t = timelines
     p1, s1, pb, s2, p0, s3 = _phases(starts)
-    return [_gather(y0t, 8, p0, s3, clip_size // 8),
+    return [gather_y0(y0t, starts, clip_size),
             _gather(y1t, 4, pb, s2, clip_size // 4),
             _gather(y2t, 2, p1, s1, clip_size // 2),
             _gather(y3t, 2, p1, s1, clip_size // 2)]
@@ -131,15 +143,17 @@ def valid_tconv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv3d(x, w, padding=(0, 1, 1))
 
 
-def dense_decoder_front(decoder, timelines):
+def dense_decoder_front(decoder, timelines, *, with_conv1: bool = True):
     """Per-chunk dense part of the plan-(3, 32) decode: the decoder's
     skip-window convs whose taps fall inside the skip, as VALID convs over
     the skip timelines, each timeline position computed once per chunk.
 
-    Returns c1u = up2x(relu(conv1(y0t))), c2y = VALID (3,3,3) conv of y1t,
-    c3y and c4y = VALID (5,3,3) convs of y2t and y3t (pre-ReLU)."""
+    Returns c1u = up2x(relu(conv1(y0t))) (None without with_conv1: AViNet
+    fuses audio into each window's y0, so its conv1 runs windowed), c2y =
+    VALID (3,3,3) conv of y1t, c3y and c4y = VALID (5,3,3) convs of y2t and
+    y3t (pre-ReLU)."""
     y0t, y1t, y2t, y3t = timelines
-    return (decoder.convtsp1(y0t),
+    return (decoder.convtsp1(y0t) if with_conv1 else None,
             valid_tconv(y1t, decoder.convtsp2[0].weight),
             valid_tconv(y2t, decoder.convtsp3[0].weight),
             valid_tconv(y3t, decoder.convtsp4[0].weight))
@@ -154,7 +168,8 @@ def fold_decoder(decoder) -> FoldedConvUp2x:
 
 
 def decode_windows_v2(decoder, timelines, dense, starts: torch.Tensor,
-                      fold3: FoldedConvUp2x | None = None) -> torch.Tensor:
+                      fold3: FoldedConvUp2x | None = None,
+                      y0_fused: torch.Tensor | None = None) -> torch.Tensor:
     """Windowed plan-(3, 32) decode on the dense front: only the positions
     that mix the upsampled deeper level into a window are computed per
     window; pure-skip positions are gathered from the dense series.
@@ -170,7 +185,9 @@ def decode_windows_v2(decoder, timelines, dense, starts: torch.Tensor,
     z3, which on the H100 measured faster than its folded conv there
     (``PERF.md``). The decoder's convs carry no bias, so partial sums add
     exactly before each ReLU. fold3: ``fold_decoder(decoder)``, made here if
-    not given. Returns (S·Bw, H, W) maps in the timelines' dtype."""
+    not given. y0_fused: the windows' own y0 (S·Bw, 1024, 4, h0, w0), which
+    conv1 then takes in place of the dense c1u (AViNet). Returns (S·Bw, H, W)
+    maps in the timelines' dtype."""
     fold3 = fold_decoder(decoder) if fold3 is None else fold3
     _, y1t, y2t, y3t = timelines
     c1u, c2y, c3y, c4y = dense
@@ -179,7 +196,7 @@ def decode_windows_v2(decoder, timelines, dense, starts: torch.Tensor,
     w3 = decoder.convtsp3[0].weight
     w4 = decoder.convtsp4[0].weight
 
-    z1 = _gather(c1u, 8, p0, s3, 4)
+    z1 = _gather(c1u, 8, p0, s3, 4) if y0_fused is None else decoder.convtsp1(y0_fused)
     y1h = _gather(y1t, 4, pb, s2, 2)
     t0 = valid_tconv(z1[:, :, 0:3], w2[:, :, 0:3])
     t1 = valid_tconv(z1[:, :, 3:4], w2[:, :, 0:1]) + valid_tconv(y1h, w2[:, :, 1:3])
@@ -205,11 +222,14 @@ class StreamingPredictor:
     reference) run on the time-reversed first chunk: the flipped window for
     start s is the reversed chunk's window at chunk_len - clip_size - s."""
 
+    dense_conv1 = True  # the dense front has conv1's series (not for AViNet)
+
     def __init__(self, model, *, clip_size: int = 32, batch: int = 16, chunk: int = 128,
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
-        """model: a ViNet with its weights loaded. The predictor prepares a
-        copy of it (BatchNorms folded, cast to dtype, moved to device, eval
-        mode) and leaves the caller's model as it is."""
+        """model: a ViNet (AViNet for AVStreamingPredictor) with its weights
+        loaded. The predictor prepares a copy of it (BatchNorms folded, cast
+        to dtype, moved to device, eval mode) and leaves the caller's model
+        as it is."""
         if chunk % 8 or chunk < 2 * clip_size:
             raise ValueError(f"chunk must be a multiple of 8 and >= {2 * clip_size}, got {chunk}")
         self.device = resolve_device(device)
@@ -218,8 +238,13 @@ class StreamingPredictor:
         self.batch = batch
         self.chunk = chunk
         self.dtype = dtype
-        self.v2 = clip_size == 32 and self.model.decoder.plan == DECODER_PLANS[(3, 32)]
-        self._fold3 = fold_decoder(self.model.decoder) if self.v2 else None
+        self.v2 = clip_size == 32 and self.visual.decoder.plan == DECODER_PLANS[(3, 32)]
+        self._fold3 = fold_decoder(self.visual.decoder) if self.v2 else None
+
+    @property
+    def visual(self):
+        """The prepared model's ViNet: its backbone and decoder."""
+        return self.model
 
     # --- the device functions (S streams in the batch axis) ---
     def _timeline(self, frames_u8: torch.Tensor, flip: bool):
@@ -228,15 +253,19 @@ class StreamingPredictor:
         x = device_preprocess(frames_u8).to(self.dtype).permute(0, 4, 1, 2, 3).contiguous()
         if flip:
             x = torch.flip(x, dims=[2])
-        tl = streaming_pyramid(self.model.backbone, x)
-        return tl, (dense_decoder_front(self.model.decoder, tl) if self.v2 else None)
+        tl = streaming_pyramid(self.visual.backbone, x)
+        dense = (dense_decoder_front(self.visual.decoder, tl, with_conv1=self.dense_conv1)
+                 if self.v2 else None)
+        return tl, dense
 
-    def _decode(self, timelines, dense, starts: torch.Tensor) -> torch.Tensor:
-        """Window starts (Bw,) shared by the S streams -> (S·Bw, H, W) f32."""
+    def _decode(self, timelines, dense, starts: torch.Tensor, audio=None) -> torch.Tensor:
+        """Window starts (Bw,) shared by the S streams -> (S·Bw, H, W) f32.
+        audio: the windows' excerpts, which the visual model does not take
+        (as in the JAX package, it is ignored)."""
         if self.v2:
-            return decode_windows_v2(self.model.decoder, timelines, dense, starts,
+            return decode_windows_v2(self.visual.decoder, timelines, dense, starts,
                                      self._fold3).float()
-        return self.model.decoder(gather_windows(timelines, starts, self.clip_size)).float()
+        return self.visual.decoder(gather_windows(timelines, starts, self.clip_size)).float()
 
     @staticmethod
     def _post(maps: torch.Tensor, out_hw: tuple, quantize_u8: bool) -> torch.Tensor:
@@ -256,13 +285,26 @@ class StreamingPredictor:
         """A window batch's starts, padded to the batch with start 0."""
         return self._upload(torch.tensor(starts + [0] * (self.batch - len(starts))))
 
+    def _audio(self, excerpts: list) -> torch.Tensor:
+        """Each stream's list of (L, 1) excerpts -> (S·batch, L, 1) f32 on
+        the device, stream-major, each stream's list padded with zero
+        audio to the batch."""
+        length = excerpts[0][0].shape[0]
+        buf = np.zeros((len(excerpts), self.batch, length, 1), np.float32)
+        for s, exc in enumerate(excerpts):
+            if exc:
+                buf[s, : len(exc)] = np.stack(exc)
+        return self._upload(torch.from_numpy(buf.reshape(-1, length, 1)))
+
     @torch.inference_mode()
     def predict_video(self, frames_u8: np.ndarray, *, out_size=None, pad_short=False,
-                      quantize_u8=False):
+                      audio_fn=None, quantize_u8=False):
         """frames_u8 (N, H, W, 3) uint8 model-sized frames. Yields
         (frame_index, map) for every predictable frame in the reference's
         emission order (warm-up maps interleaved); maps are f32, or uint8
-        with quantize_u8."""
+        with quantize_u8. audio_fn(start) -> (L, 1) float32: the excerpt of
+        the window starting at that frame of the video (AViNet); warm-up
+        windows get it reversed, as their clips are."""
         n = frames_u8.shape[0]
         t = self.clip_size
         if n < 2 * t - 1:
@@ -315,7 +357,13 @@ class StreamingPredictor:
             tl, dense = self._timeline(frames[None, chunk_start: chunk_start + chunk], flipped)
             for lo in range(0, len(wins), self.batch):
                 group = wins[lo: lo + self.batch]
-                maps = self._decode(tl, dense, self._starts([s for _, s in group]))
+                audio = None
+                if audio_fn is not None:
+                    # a warm-up window starts at the frame it emits, a
+                    # normal one t - 1 frames before it
+                    exc = [audio_fn(max(0, f if flipped else f - t + 1)) for f, _ in group]
+                    audio = self._audio([[e[::-1] for e in exc] if flipped else exc])
+                maps = self._decode(tl, dense, self._starts([s for _, s in group]), audio)
                 done.update(f for f, _ in group)
                 pending.append(([f for f, _ in group],
                                 self._post(maps[: len(group)], out_hw, quantize_u8)))
@@ -323,3 +371,32 @@ class StreamingPredictor:
                     yield from flush()
         if pending:
             yield from flush()
+
+
+class AVStreamingPredictor(StreamingPredictor):
+    """Streaming sliding-window inference for AViNet (bilinear fusion,
+    ``vinet_tpu/inference/streaming.py::AVStreamingPredictor``): the visual
+    timelines are shared by the overlapping windows as for ViNet; per window
+    batch, the windows' y0 is gathered and fused with their audio
+    (``AViNet.fuse``: SoundNet, the y0 max pool, the bilinear map and the
+    optional encoder), and the decode runs on it, its pure-skip positions
+    still from the dense front. Reference workload:
+    generate_result_audio_visual's sliding windows."""
+
+    dense_conv1 = False
+
+    @property
+    def visual(self):
+        return self.model.visual_model
+
+    def _decode(self, timelines, dense, starts: torch.Tensor, audio=None) -> torch.Tensor:
+        """audio (S·Bw, L, 1): the windows' excerpts, stream-major."""
+        if audio is None:
+            raise ValueError("an AViNet decode needs the windows' audio")
+        if self.v2:
+            fused = self.model.fuse(gather_y0(timelines[0], starts, self.clip_size), audio)
+            return decode_windows_v2(self.visual.decoder, timelines, dense, starts,
+                                     self._fold3, y0_fused=fused).float()
+        pyr = gather_windows(timelines, starts, self.clip_size)
+        pyr[0] = self.model.fuse(pyr[0], audio)
+        return self.visual.decoder(pyr).float()

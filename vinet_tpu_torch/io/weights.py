@@ -1,15 +1,23 @@
 """Weights: JAX-package trees and reference state_dicts -> the port's state_dict.
 
 The port's modules carry the reference's names, so a reference ``.pt``
-state_dict loads with ``load_state_dict(strict=True)`` and no converter. The
-JAX package's ``(params, state)`` trees go through ``from_jax_trees``, the
-inverse of ``vinet_tpu/io/convert.py`` for ViNet (the same transforms as
-``vinet_tpu/io/export.py``):
+state_dict loads with ``load_state_dict(strict=True)``; the one conversion
+is SoundNet's conv weights, Conv2d (O, I, k, 1) in the reference and
+``nn.Conv1d`` (O, I, k) here (``load_weights`` takes both). The JAX
+package's ``(params, state)`` trees go through ``from_jax_trees``, the
+inverse of ``vinet_tpu/io/convert.py`` for ViNet and AViNet (the same
+transforms as ``vinet_tpu/io/export.py``):
 
   * conv weight (kT, kH, kW, I, O) -> (O, I, kT, kH, kW); 'w'/'b' -> weight/bias
+  * SoundNet conv weight (K, I, O) -> (O, I, K); bilinear 'w' (O, I, J) as it is
   * BatchNorm params scale/bias + state mean/var -> weight/bias/
     running_mean/running_var, plus num_batches_tracked (0)
-  * decoder conv1..conv7 -> convtspN.i
+  * decoder conv1..conv7 -> convtspN.i (under ``visual_model.`` for AViNet)
+  * the encoder's layers -> ``transformer.transformer_encoder.layers.N``
+    (in_proj_w/in_proj_b -> in_proj_weight/in_proj_bias, LayerNorm
+    scale/bias -> weight/bias), and its sin/cos table, which JAX recomputes
+    and does not store, as ``transformer.pos_encoder.pe`` (max_len =
+    conv_in_1x1's channels)
   * an int8 conv of ``vinet_tpu/ops/quant.py`` ({w_q, w_scale, x_scale[, b]})
     -> the buffers of ``ops/quant.py::QuantConv3d``: w_q (DHWIO -> OIDHW, as
     a float weight), w_scale, x_scale, bias; load it with
@@ -46,30 +54,70 @@ def _tensor(v) -> torch.Tensor:
 
 
 def _conv_weight(w) -> torch.Tensor:
+    """A JAX conv weight: (kT, kH, kW, I, O) -> (O, I, kT, kH, kW), or
+    SoundNet's (K, I, O) -> (O, I, K)."""
     t = _tensor(w)
-    if t.dim() != 5:
-        raise ValueError(f"expected a 3-D conv weight (kT,kH,kW,I,O), got {tuple(t.shape)}")
-    return t.permute(4, 3, 0, 1, 2).contiguous()
+    if t.dim() == 5:
+        return t.permute(4, 3, 0, 1, 2).contiguous()
+    if t.dim() == 3:
+        return t.permute(2, 1, 0).contiguous()
+    raise ValueError(f"expected a conv weight (kT,kH,kW,I,O) or (K,I,O), got {tuple(t.shape)}")
 
 
-def _leaf(key: str, value) -> torch.Tensor:
-    return _conv_weight(value) if key in ("w", "w_q") else _tensor(value)
+def _leaf(key: str, value, path: list) -> torch.Tensor:
+    if key in ("w", "w_q") and path[-1:] != ["bilinear"]:  # bilinear (O, I, J): torch's
+        return _conv_weight(value)
+    return _tensor(value)
+
+
+_ATTN_LEAVES = {"in_proj_w": "in_proj_weight", "in_proj_b": "in_proj_bias"}
+
+
+def _transformer(out: dict, prefix: str, node: dict, max_len: int | None) -> None:
+    """The encoder's layers (``vinet_tpu/io/convert.py:53-69`` inverted) and
+    its sin/cos table."""
+    from vinet_tpu_torch.models.transformer import positional_encoding
+
+    if set(node) != {"layers"}:
+        raise KeyError(f"unhandled transformer subtree: {sorted(node)}")
+
+    def walk(n: dict, path: list) -> None:
+        for k, v in n.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+                continue
+            holder = path[-1]
+            leaf = (_ATTN_LEAVES.get(k) if holder == "self_attn" else
+                    {"scale": "weight", "bias": "bias"}.get(k) if holder.startswith("norm") else
+                    _LEAVES.get(k))
+            if leaf is None:
+                raise KeyError(f"unhandled transformer leaf: {'.'.join(path + [k])}")
+            out[".".join([prefix, "transformer_encoder"] + path + [leaf])] = _tensor(v)
+
+    walk(node["layers"], ["layers"])
+    if max_len is None:
+        raise ValueError(f"{prefix}: no conv_in_1x1 gives the sin/cos table's length")
+    feat = _tensor(node["layers"]["0"]["self_attn"]["in_proj_w"]).shape[1]
+    out[f"{prefix}.pos_encoder.pe"] = positional_encoding(max_len, feat)[:, None, :]
 
 
 def from_jax_trees(params: dict, state: dict) -> dict:
-    """JAX-package ViNet (params, state) nested dicts of arrays -> the port's
-    state_dict of tensors (reference names)."""
+    """JAX-package ViNet or AViNet (params, state) nested dicts of arrays ->
+    the port's state_dict of tensors (reference names)."""
     out: dict = {}
 
     def walk(p_node: dict, s_node: dict, path: list) -> None:
         for k, v in p_node.items():
             name = ".".join(path + [k])
             sv = s_node.get(k, {}) if isinstance(s_node, dict) else {}
-            if k == "decoder" and not path:
+            if k == "transformer" and not path:
+                cin = p_node.get("conv_in_1x1", {}).get("w")
+                _transformer(out, name, v, None if cin is None else np.shape(cin)[-1])
+            elif k == "decoder" and path in ([], ["visual_model"]):
                 table = decoder_names("conv6" in v)
                 for conv, node in v.items():
                     for leaf, value in node.items():
-                        out[f"decoder.{table[conv]}.{_LEAVES[leaf]}"] = _leaf(leaf, value)
+                        out[f"{name}.{table[conv]}.{_LEAVES[leaf]}"] = _leaf(leaf, value, [])
             elif isinstance(v, dict) and set(v) == {"scale", "bias"}:
                 out[f"{name}.weight"] = _tensor(v["scale"])
                 out[f"{name}.bias"] = _tensor(v["bias"])
@@ -79,7 +127,7 @@ def from_jax_trees(params: dict, state: dict) -> dict:
             elif isinstance(v, dict):
                 walk(v, sv, path + [k])
             elif k in _LEAVES:
-                out[".".join(path + [_LEAVES[k]])] = _leaf(k, v)
+                out[".".join(path + [_LEAVES[k]])] = _leaf(k, v, path)
             else:
                 raise KeyError(f"unhandled params leaf: {name}")
 
@@ -120,12 +168,24 @@ def s3d_kinetics_remap(sd: dict) -> dict:
     return out
 
 
+def _soundnet_conv1d(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A SoundNet conv weight as the port's nn.Conv1d takes it: the
+    reference's Conv2d (O, I, k, 1) (or (O, I, 1, k)) -> (O, I, k)."""
+    if name.endswith(".weight") and t.dim() == 4:
+        if 1 not in t.shape[2:]:
+            raise ValueError(f"{name}: not a 1-D conv weight {tuple(t.shape)}")
+        return t.squeeze(3 if t.shape[3] == 1 else 2)
+    return t
+
+
 def load_weights(path: str) -> dict:
-    """A state_dict for the port's ViNet from a JAX-package .npz or a
-    reference .pt state_dict. Load it with load_state_dict(strict=True), or
-    with ``load_model_weights``. An S3D Kinetics-400 backbone file
-    (S3D_kinetics400.pt, flat 'base.N.*' names) gives the backbone's
-    entries alone, under 'backbone.'."""
+    """A state_dict for the port's ViNet or AViNet from a JAX-package .npz or
+    a reference .pt state_dict (SoundNet's Conv2d weights made 1-D). Load it
+    with load_state_dict(strict=True), or with ``load_model_weights``. Two
+    partial files give their entries alone: an S3D Kinetics-400 backbone
+    (S3D_kinetics400.pt, flat 'base.N.*' names) under 'backbone.', and a
+    SoundNet state_dict (soundnet8_final.pth, 'convN.*'/'batchnormN.*')
+    under 'audionet.'."""
     if path.endswith(".npz"):
         return from_jax_trees(*load_npz_trees(path))
     sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -136,17 +196,24 @@ def load_weights(path: str) -> dict:
     if any(k.startswith("base.") for k in sd):
         return {f"backbone.{k}": v for k, v in s3d_kinetics_remap(sd).items()
                 if k.startswith("base")}
-    return sd
+    if sd and all(k.split(".")[0].startswith(("conv", "batchnorm")) for k in sd):
+        sd = {f"audionet.{k}": v for k, v in sd.items()}  # SoundNet alone
+    return {k: _soundnet_conv1d(k, v) if k.startswith("audionet.") else v
+            for k, v in sd.items()}
 
 
 def load_model_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load path (``load_weights``) into model strictly: the whole model, or
-    its backbone alone from a file that holds only the backbone (the decoder
-    keeps its weights). Returns model."""
+    from a file that holds only a part, that part alone (the rest keeps its
+    weights): the S3D backbone (of ViNet, or of AViNet's visual model), or
+    AViNet's SoundNet. Returns model."""
     sd = load_weights(path)
-    if all(k.startswith("backbone.") for k in sd):
-        model.backbone.load_state_dict({k[len("backbone."):]: v for k, v in sd.items()},
-                                       strict=True)
-    else:
-        model.load_state_dict(sd, strict=True)
+    for part in ("backbone", "audionet"):
+        if all(k.startswith(part + ".") for k in sd):
+            owner = model.visual_model if part == "backbone" and hasattr(model, "visual_model") \
+                else model
+            getattr(owner, part).load_state_dict(
+                {k[len(part) + 1:]: v for k, v in sd.items()}, strict=True)
+            return model
+    model.load_state_dict(sd, strict=True)
     return model

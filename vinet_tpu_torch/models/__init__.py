@@ -1,9 +1,14 @@
+from vinet_tpu_torch.models.avinet import AViNet, Bilinear
 from vinet_tpu_torch.models.decoder import DECODER_PLANS, Decoder, DecoderPlan, decoder_plan
 from vinet_tpu_torch.models.inference import cast_floating, fold_batchnorms
 from vinet_tpu_torch.models.s3d import MIXED_PLAN, InceptionBlock, S3DBackbone
+from vinet_tpu_torch.models.soundnet import SoundNet
+from vinet_tpu_torch.models.transformer import TransformerEncoder, TransformerEncoderLayer
 from vinet_tpu_torch.models.vinet import ViNet
 
 __all__ = [
+    "AViNet",
+    "Bilinear",
     "DECODER_PLANS",
     "Decoder",
     "DecoderPlan",
@@ -13,5 +18,8 @@ __all__ = [
     "MIXED_PLAN",
     "InceptionBlock",
     "S3DBackbone",
+    "SoundNet",
+    "TransformerEncoder",
+    "TransformerEncoderLayer",
     "ViNet",
 ]

@@ -18,8 +18,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def fold_batchnorms(model: nn.Module) -> nn.Module:
-    """Fold every BatchNorm into its conv in place (exact at f32): each conv
-    gains a bias and its BatchNorm becomes nn.Identity. Returns model."""
+    """Fold every BatchNorm into its conv in place (exact at f32), each at
+    its own eps (the visual net's 1e-3, SoundNet's 1e-5): each conv gains a
+    bias and its BatchNorm becomes nn.Identity. Returns model."""
     for m in model.modules():
         fold = getattr(m, "fold_bn", None)
         if fold is not None:
@@ -28,8 +29,10 @@ def fold_batchnorms(model: nn.Module) -> nn.Module:
 
 
 def cast_floating(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast floating-point parameters and buffers to dtype (bf16 inference);
-    the int8 weights of quantized convs stay int8."""
+    """Cast floating-point parameters and buffers to dtype (bf16 inference),
+    the audio-visual modules' too (SoundNet, the bilinear weights, the
+    encoder and its sin/cos table); the int8 weights of quantized convs stay
+    int8."""
     return model.to(dtype)
 
 
@@ -67,17 +70,22 @@ def load_int8_state_dict(model: nn.Module, state_dict: dict) -> nn.Module:
 
 def make_inference_fn(model: nn.Module, *, dtype: str = "bfloat16", calib_clips=None,
                       device="cuda"):
-    """Prepare model in place and return (fn, model); fn(clips) maps
-    (B, T, H, W, 3) normalised clips to (B, H, W) f32 maps on ``device``.
+    """Prepare model in place and return (fn, model); fn(clips[, audio])
+    maps (B, T, H, W, 3) normalised clips (and for AViNet (B, L, 1)
+    waveforms, cast to dtype) to (B, H, W) f32 maps on ``device``.
 
     ``vinet_tpu/models/inference.py::make_inference_fn``: fold the
     BatchNorms (a folded model stays as it is), then cast to dtype
     ("float32" or "bfloat16"). dtype="int8" (needs calib_clips) casts to f32,
     calibrates on calib_clips in f32 on ``device``, quantizes
     (``quantize_int8``) and casts every floating tensor to bf16, the
-    quantization scales and biases included."""
+    quantization scales and biases included. int8 takes visual ViNet only:
+    the JAX package calibrates without audio, so its int8 AViNet does not
+    run either."""
     if dtype not in (*DTYPES, "int8"):
         raise ValueError(f"dtype must be one of {(*DTYPES, 'int8')}, got {dtype!r}")
+    if dtype == "int8" and not hasattr(model, "decoder"):
+        raise ValueError("dtype='int8' takes visual ViNet only")
     dev = resolve_device(device)
     fold_batchnorms(model.eval())
     if dtype == "int8":
@@ -89,8 +97,10 @@ def make_inference_fn(model: nn.Module, *, dtype: str = "bfloat16", calib_clips=
     dtype = DTYPES[dtype]
     model = cast_floating(model, dtype).to(dev)
 
-    def fn(clips: torch.Tensor) -> torch.Tensor:
+    def fn(clips: torch.Tensor, audio: torch.Tensor | None = None) -> torch.Tensor:
         with torch.inference_mode():
-            return model(clips.to(dev, dtype)).float()
+            if audio is None:
+                return model(clips.to(dev, dtype)).float()
+            return model(clips.to(dev, dtype), audio.to(dev, dtype)).float()
 
     return fn, model
