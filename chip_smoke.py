@@ -91,9 +91,25 @@ fails. Phases, each printing one JSON line:
    and one serve step's device time; ``evaluate_av_agreement`` on the
    fixture suite in bf16, the blob kind within 0.005 of f32.
 
-Phases 6-13 set the launch counts to 0 before their path, read them after,
-and fail unless the fused head launched (phase 11: in the eval step and the
-CLI's validation, and never in a train step). Then one line lists every kernel
+14. av_train: AViNet(3, 32) at 224 x 384 (the fixture's visual weights,
+   the rest seeded), BatchNorm unfolded, bf16 convolutions over f32
+   masters, Adam 1e-4, batch 8 with (8, 70560, 1) audio: 2 warm-up and 5
+   timed steps with the bilinear fusion and again with the refinement
+   encoder (ms, peak memory, finite losses and gradients, every statistic
+   moved, SoundNet's included, no kernel launched in a step), a profile of
+   one bilinear step; the eval step
+   through the fused head; dropout on the card (the encoder at lr 0: steps
+   0 and 1 differ, step 0 repeats exactly, a state without a seed repeats);
+   one f32 step at 2 x 32 x 64 x 96 on the card against the CPU (loss and
+   statistics); AViNetFusion(512) bf16 against f32 through
+   ``make_inference_fn`` with audio, and its train steps; then
+   ``vinet_tpu_torch.cli.train --dataset SoundDataset --use_sound True
+   --use_transformer True --bf16`` on the six STAViS sets (3 videos x 40
+   frames each) with validation, a checkpoint and --resume with --bn_recal.
+
+Phases 6-14 set the launch counts to 0 before their path, read them after,
+and fail unless the fused head launched (phases 11 and 14: in the eval steps
+and the CLI's validation, and never in a train step). Then one line lists every kernel
 with its numbers (the head's launches on every path), and the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1964,6 +1980,230 @@ def phase_av(torch) -> dict:
     return paths
 
 
+# AV train step, card f32 against CPU f32 (AViNet(3, 32) at 2 x 32 x 64 x 96):
+# the loss as ViNet's step holds it (TRAIN_CPU_LOSS_TOL), SoundNet's and the
+# visual net's new running statistics within 1e-4 of each tensor's largest
+# value (the batch statistics pass through momentum 0.1 and 0.001)
+AV_TRAIN_CPU_STATS_TOL = 1e-4
+
+
+def _write_av_sets(root: str, n_videos: int, n_frames: int, size: tuple) -> None:
+    """The six audio-visual sets in the STAViS layout (tests/fixtures.py's
+    make_sound_dataset): per set, videos with frames
+    video_frames/<DS>/<v>/img_%05d.jpg, their blob as GT
+    annotations/<DS>/<v>/maps/eyeMap_%05d.jpg, a 22050 Hz int16 wav
+    video_audio/<DS>/<v>/<v>.wav, and the train and test fold lists (DIEM's
+    without a split, the others' of split 1)."""
+    import numpy as np
+    from PIL import Image
+    from scipy.io import wavfile
+
+    from vinet_tpu_torch.data.datasets import AV_DATASETS
+
+    rng = np.random.default_rng(9)
+    os.makedirs(os.path.join(root, "fold_lists"))
+    for ds in AV_DATASETS:
+        names = [f"{ds.lower()}{v:02d}" for v in range(n_videos)]
+        for v in names:
+            fdir = os.path.join(root, "video_frames", ds, v)
+            mdir = os.path.join(root, "annotations", ds, v, "maps")
+            wdir = os.path.join(root, "video_audio", ds, v)
+            for d in (fdir, mdir, wdir):
+                os.makedirs(d)
+            for f, img in enumerate(_video_frames(rng, n_frames, size)):
+                Image.fromarray(img).save(os.path.join(fdir, "img_%05d.jpg" % (f + 1)),
+                                          quality=95)
+                gt = np.round(255.0 * _blob(size, f, n_frames)).astype(np.uint8)
+                Image.fromarray(gt).save(os.path.join(mdir, "eyeMap_%05d.jpg" % (f + 1)),
+                                         quality=100)
+            t = np.arange(int(AV_FS * n_frames / AV_FPS)) / AV_FS
+            wav = 8000 * np.sin(2 * np.pi * (220 + 200 * t) * t) + rng.normal(0, 500, t.shape)
+            wavfile.write(os.path.join(wdir, f"{v}.wav"), AV_FS, wav.astype(np.int16))
+        for mode in ("train", "test"):
+            name = f"DIEM_list_{mode}_fps.txt" if ds == "DIEM" else f"{ds}_list_{mode}_1_fps.txt"
+            with open(os.path.join(root, "fold_lists", name), "w") as fh:
+                fh.writelines(f"{v} {n_frames} {AV_FPS}\n" for v in names)
+
+
+def _av_batch(torch, b: int, h: int, w: int, seed: int) -> dict:
+    batch = _train_batch(torch, b, 32, h, w, seed)
+    batch["audio"] = _av_audio(torch, b, seed)
+    return batch
+
+
+def _timed_steps(torch, ts, step, batch, n_warm: int = 2, n_timed: int = 5) -> dict:
+    """n_warm + n_timed steps: their losses, ms (each waits for its loss),
+    the median of the timed ones, peak memory and the launch counts."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(n_warm + n_timed):
+        t0 = time.perf_counter()
+        _, metrics = step(ts, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": ms, "step_ms_median": float(np.median(ms[n_warm:])),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": _launch_counts()}
+
+
+def phase_av_train(torch, card: str) -> dict:
+    """Audio-visual training on the card: AViNet(3, 32) at 224 x 384, batch
+    8, bf16 (the bilinear fusion, then the refinement encoder), its eval
+    step through the fused head, dropout on the card, card against CPU,
+    AViNetFusion, and the train CLI on the six STAViS sets with validation,
+    checkpoint and resume. Returns the launches by path."""
+    import numpy as np
+
+    from vinet_tpu_torch.inference.accuracy import av_fixture_model
+    from vinet_tpu_torch.io.checkpoint import latest_step
+    from vinet_tpu_torch.models.inference import make_inference_fn
+    from vinet_tpu_torch.training import LossConfig
+    from vinet_tpu_torch.training.trainer import (init_train_state, make_eval_step,
+                                                  make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = LossConfig()
+    paths, rec = {}, {"phase": "av_train", "card": card, "input": [8, 32, 224, 384, 3],
+                      "audio": [8, 70560, 1], "precision": "bf16 convs, f32 masters, Adam 1e-4"}
+    step16 = make_train_step(cfg, compute_dtype=torch.bfloat16)
+    batch = _av_batch(torch, 8, 224, 384, seed=20)
+
+    # (a) full-width bf16 steps: the bilinear fusion, then the refinement encoder
+    for name, use_transformer in (("bilinear", False), ("encoder", True)):
+        model = _av_model(torch, use_transformer).cuda()
+        bn0 = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+        ts = init_train_state(model, 1e-4)
+        run = _timed_steps(torch, ts, step16, batch)
+        moved = {part: sum(not torch.equal(v, bn0[k]) for k, v in model.state_dict().items()
+                           if "running" in k and k.startswith("audionet.") == (part == "audio"))
+                 for part in ("audio", "visual")}
+        run.update(bn_stats_moved=moved, bn_stats=len(bn0),
+                   grads_finite=all(bool(torch.isfinite(p.grad).all())
+                                    for p in model.parameters() if p.grad is not None))
+        paths[f"av_train_steps_{name}"] = run["launches"]
+        check(all(np.isfinite(run["losses"])), f"AV {name} train losses {run['losses']}")
+        check(run["grads_finite"], f"AV {name}: a gradient is not finite")
+        check(moved["audio"] + moved["visual"] == len(bn0),
+              f"AV {name}: BN statistics that did not move: {len(bn0)} - {moved}")
+        check(all(v == 0 for v in run["launches"].values()),
+              f"AV {name} train steps launched a kernel: {run['launches']}")
+        if name == "bilinear":  # (b) the eval step on the trained model: the fused head
+            run["profile"] = profile_device(torch, lambda: step16(ts, batch))
+            _reset_launch_counts()
+            metrics, pred = make_eval_step(cfg)(ts, batch)
+            paths["av_train_eval_step"] = _launch_counts()
+            _require_head(paths["av_train_eval_step"], "the AV eval step")
+            run["eval_loss"] = float(metrics["loss"])
+            check(pred.shape == (8, 224, 384) and bool(torch.isfinite(pred).all()),
+                  f"AV eval step maps {tuple(pred.shape)}")
+        rec[name] = run
+        del model, ts
+        torch.cuda.empty_cache()
+    rec["encoder_minus_bilinear_ms"] = (rec["encoder"]["step_ms_median"]
+                                        - rec["bilinear"]["step_ms_median"])
+
+    # (c) dropout on the card (the encoder, batch 2, lr 0): the masks follow
+    # the step, a state without a seed repeats, the same step repeats exactly
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = _av_model(torch, True).cuda()
+        small = {k: v[:2] for k, v in batch.items()}
+        step32 = make_train_step(cfg)
+
+        def losses(seed, n):
+            ts = init_train_state(copy.deepcopy(model), 0.0, seed=seed)
+            return [float(step32(ts, small)[1]["loss"]) for _ in range(n)]
+
+        drop, again, plain = losses(0, 2), losses(0, 1), losses(None, 2)
+        rec["dropout"] = {"losses_seed0": drop, "repeat_step0": again, "losses_no_seed": plain}
+        check(drop[0] != drop[1], f"dropout: steps 0 and 1 gave one loss {drop}")
+        check(again[0] == drop[0], f"dropout: step 0 did not repeat: {again[0]} vs {drop[0]}")
+        check(plain[0] == plain[1], f"no dropout seed, yet the losses moved: {plain}")
+        del model
+    finally:
+        torch.backends.cudnn.deterministic = det
+    torch.cuda.empty_cache()
+
+    # (d) one f32 step at 2 x 32 x 64 x 96: card against CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small_model = av_fixture_model(FIXTURE, seed=AV_SEED, input_hw=(64, 96))
+    sb = _av_batch(torch, 2, 64, 96, seed=21)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ts = init_train_state(copy.deepcopy(small_model).to(dev), 1e-4, seed=None)
+        _, m = make_train_step(cfg)(ts, {k: v.to(dev) for k, v in sb.items()})
+        runs[dev] = (float(m["loss"]), {k: v.double().cpu() for k, v in ts.model.state_dict().items()
+                                        if "running" in k})
+    loss_err = abs(runs["cuda"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    stats_err = max(float((runs["cuda"][1][k] - v).abs().max() / v.abs().max())
+                    for k, v in runs["cpu"][1].items())
+    rec["card_vs_cpu_f32"] = {"input": [2, 32, 64, 96, 3], "loss_rel_err": loss_err,
+                              "bn_stats_rel_err": stats_err,
+                              "tol": [TRAIN_CPU_LOSS_TOL, AV_TRAIN_CPU_STATS_TOL]}
+    check(loss_err <= TRAIN_CPU_LOSS_TOL and stats_err <= AV_TRAIN_CPU_STATS_TOL,
+          f"AV card vs CPU f32 step: loss {loss_err}, statistics {stats_err}")
+
+    # (e) AViNetFusion: bf16 against f32 through make_inference_fn, one train step
+    fusion = av_fixture_model(FIXTURE, seed=AV_SEED, fusion=True)
+    clips, audio = batch["clip"][:2], batch["audio"][:2]
+    maps = {}
+    for dtype in ("float32", "bfloat16"):
+        fn, _ = make_inference_fn(copy.deepcopy(fusion), dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        maps[dtype] = fn(clips, audio)
+        torch.cuda.synchronize()
+        paths[f"fusion_eval_{dtype}"] = _launch_counts()
+        _require_head(paths[f"fusion_eval_{dtype}"], f"AViNetFusion's {dtype} forward")
+    diff = (maps["bfloat16"] - maps["float32"]).abs()
+    ts = init_train_state(fusion.cuda(), 1e-4)
+    frun = _timed_steps(torch, ts, step16, {k: v[:2] for k, v in batch.items()}, 1, 2)
+    paths["fusion_train_steps"] = frun["launches"]
+    rec["fusion"] = {"config": "AViNetFusion(512), fixture visual weights", "input": [2, 32, 224,
+                     384, 3], "bf16_vs_f32_max": float(diff.max()),
+                     "bf16_vs_f32_mean": float(diff.mean()),
+                     "tol": [BF16_MAX_TOL, BF16_MEAN_TOL], "train": frun}
+    check(float(diff.max()) <= BF16_MAX_TOL and float(diff.mean()) <= BF16_MEAN_TOL,
+          f"AViNetFusion bf16 vs f32: max {float(diff.max())}, mean {float(diff.mean())}")
+    check(all(np.isfinite(frun["losses"])) and all(v == 0 for v in frun["launches"].values()),
+          f"AViNetFusion train steps: {frun}")
+    del fusion, ts, batch
+    torch.cuda.empty_cache()
+
+    # (f) the train CLI on the six STAViS sets: validation, checkpoint, resume
+    clis = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ck, best = (os.path.join(tmp, n) for n in ("stavis", "ck", "best.pt"))
+        _write_av_sets(root, 3, 40, (112, 192))
+        common = ["--dataset", "SoundDataset", "--split", "1", "--train_path_data", root,
+                  "--use_sound", "True", "--use_transformer", "True", "--bf16",
+                  "--batch_size", "8", "--max_steps_per_epoch", "2", "--no_epochs", "1",
+                  "--no_workers", "8", "--checkpoint_dir", ck, "--model_val_path", best,
+                  "--device", "cuda"]
+        for name, extra in (("train", []), ("resume", ["--resume", "--bn_recal", "1"])):
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            _cli_train(common + extra)
+            clis[name] = {"seconds": time.perf_counter() - t0, "launches": _launch_counts(),
+                          "latest_step": latest_step(ck)}
+            paths[f"cli_av_train_{name}"] = clis[name]["launches"]
+            _require_head(clis[name]["launches"], f"cli.train --use_sound {name}'s validation")
+        saved = torch.load(best, weights_only=True)
+    check(clis["train"]["latest_step"] == 2 and clis["resume"]["latest_step"] == 4,
+          f"AV checkpoint steps {clis['train']['latest_step']}, {clis['resume']['latest_step']}")
+    check("transformer.pos_encoder.pe" in saved and saved["audionet.conv1.weight"].dim() == 4,
+          "the AV best model is not in the reference's layout")
+    rec.update(cli=clis, launches=paths, phase_seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1997,6 +2237,8 @@ def main() -> int:
         paths.update(phase_accuracy(torch, ck_dir)["launches"])
     torch.cuda.empty_cache()
     paths.update(phase_av(torch))
+    torch.cuda.empty_cache()
+    paths.update(phase_av_train(torch, card))
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():

@@ -299,7 +299,7 @@ def test_checkpoint_roundtrip_and_resume_equal_an_unbroken_run(fresh, tmp_path):
     resumed = init_train_state(copy.deepcopy(model), seed=0)
     restore_checkpoint(str(tmp_path), resumed)
     assert resumed.step == 1
-    assert torch.equal(resumed.generator.get_state(), ts.generator.get_state())
+    assert resumed.dropout_seed == ts.dropout_seed == 7
     for (k, a), b in zip(resumed.model.state_dict().items(), ts.model.state_dict().values()):
         assert torch.equal(a, b), k
     for _ in range(2):

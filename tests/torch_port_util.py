@@ -8,6 +8,8 @@ AViNet's from the port's seeded model, exported and read by JAX's converter.
 
 from __future__ import annotations
 
+import copy
+import functools
 import os
 
 import numpy as np
@@ -206,3 +208,112 @@ def trees_as_arguments(predictor, name: str, fn) -> None:
 
     jitted = jax.jit(run)
     predictor._jitted[name] = lambda *args: jitted(predictor.params, predictor.state, *args)
+
+
+def av_bn_trees(use_transformer: bool = False, input_hw=(64, 64), seed: int = 0,
+                fusion: bool = False, clip_size: int = 32):
+    """(JAX AViNet or AViNetFusion (num_hier 3), params, state) with every
+    leaf seeded by ``bn_tree`` over ``jax.eval_shape`` of the model's init
+    (never run): small BatchNorm means, so that JAX's f32 train-mode
+    BatchNorm, which takes the batch variance in one pass (E[x^2] - E[x]^2),
+    keeps its precision, as on ``test_torch_training.py``'s trees."""
+    import jax
+
+    from vinet_tpu.models import AViNet, AViNetFusion
+
+    jm = (AViNetFusion(clip_size=clip_size, input_hw=tuple(input_hw)) if fusion else
+          AViNet(use_transformer=use_transformer, clip_size=clip_size,
+                 input_hw=tuple(input_hw)))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+    return jm, bn_tree(shapes[0], rng), bn_tree(shapes[1], rng)
+
+
+def av_batch(seed: int = 0, b: int = 2, hw=(64, 64), clip_size: int = 32) -> dict:
+    """A seeded numpy AV batch: normal clips (B, T, H, W, 3), GT (B, H, W)
+    in [0.05, 1], audio (B, 70560, 1) normal * 0.1."""
+    rng = np.random.default_rng(seed)
+    return {"clip": rng.standard_normal((b, clip_size, *hw, 3)).astype(np.float32),
+            "gt": np.clip(rng.random((b, *hw)), 0.05, 1.0).astype(np.float32),
+            "audio": (0.1 * rng.standard_normal((b, 70560, 1))).astype(np.float32)}
+
+
+def jax_train_step_fn(jm, compute_dtype=None, grad_accum: int = 1):
+    """fn(params, state, batch) -> (loss, new state as numpy): one step of
+    the JAX package's ``make_train_step`` (Adam at 1e-4) from a state
+    without "rng" (dropout off). One jitted step serves every call, so
+    trees of one structure compile once."""
+    import jax
+    import jax.numpy as jnp
+
+    from vinet_tpu.training.losses import LossConfig
+    from vinet_tpu.training.trainer import adam, make_train_step
+
+    opt = adam(1e-4)
+    step = make_train_step(jm, LossConfig(), opt, donate=False, compute_dtype=compute_dtype,
+                           grad_accum=grad_accum)
+
+    def fn(params, state, batch):
+        ts = {"params": params, "state": state, "opt_state": opt.init(params),
+              "step": jnp.zeros((), jnp.int32)}
+        new_ts, metrics = step(ts, {k: jnp.asarray(v) for k, v in batch.items()})
+        return float(metrics["loss"]), jax.tree_util.tree_map(np.asarray, new_ts["state"])
+
+    return fn
+
+
+@functools.lru_cache
+def jax_train_forward(jm, compute_dtype=None):
+    """The forward of the JAX package's ``make_train_step`` (its loss_fn:
+    parameters, clip and audio cast to compute_dtype, ``apply(train=True)``
+    without a key, the maps cast to f32), jitted once per model and dtype:
+    fn(params, state, batch) -> (f32 maps, loss, new state) as numpy. The
+    loss and the new state are the train step's; no backward is compiled."""
+    import jax
+    import jax.numpy as jnp
+
+    from vinet_tpu.models.inference import cast_floating
+    from vinet_tpu.training.losses import LossConfig, loss_func
+
+    def forward(params, state, batch):
+        clip, audio = batch["clip"], batch["audio"]
+        if compute_dtype is not None:
+            params = cast_floating(params, compute_dtype)
+            clip, audio = clip.astype(compute_dtype), audio.astype(compute_dtype)
+        pred, new_state = jm.apply(params, state, clip, audio, train=True)
+        pred = pred.astype(jnp.float32)
+        return pred, loss_func(pred, batch["gt"], LossConfig()), new_state
+
+    jitted = jax.jit(forward)
+    return lambda params, state, batch: jax.tree_util.tree_map(
+        np.asarray, jitted(params, state, {k: jnp.asarray(v) for k, v in batch.items()}))
+
+
+def port_train_step(model, batch: dict, compute_dtype=None):
+    """One step of the port's ``make_train_step`` on a copy of model from a
+    state without a dropout seed (dropout off), on a numpy batch: (loss,
+    the trained copy)."""
+    from vinet_tpu_torch.training import LossConfig
+    from vinet_tpu_torch.training.trainer import init_train_state, make_train_step
+
+    m = copy.deepcopy(model)
+    ts = init_train_state(m, seed=None)
+    _, metrics = make_train_step(LossConfig(), compute_dtype=compute_dtype)(
+        ts, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return float(metrics["loss"]), m
+
+
+def running_stats_err(model, params: dict, jax_state: dict) -> dict:
+    """{"visual", "audio"}: the worst BatchNorm running statistic of model
+    (the visual net's, SoundNet's) as max |err| relative to its largest
+    value, against a JAX state over params."""
+    from vinet_tpu_torch.io.weights import from_jax_trees
+
+    want = from_jax_trees(params, jax_state)
+    errs = {"visual": 0.0, "audio": 0.0}
+    for k, v in model.state_dict().items():
+        if "running" in k:
+            w = want[k].double()
+            part = "audio" if k.startswith("audionet.") else "visual"
+            errs[part] = max(errs[part], float((v.double() - w).abs().max() / w.abs().max()))
+    return errs

@@ -1,20 +1,31 @@
 """Training CLI (reference train.py), ``vinet_tpu/cli/train.py`` on PyTorch.
 
-Trains visual ViNet on DHF1KDataset or Hollywood/UCF (HollywoodUCFDataset)
-with Adam, on --device (default cuda; asking for cuda without a card raises).
-Each epoch ends with validation (an f32 forward in eval mode, resized to the
-native GT size, blurred, then loss / cc / sim; on a card the decoder ends in
-the fused head kernel), a full train-state checkpoint under
---checkpoint_dir (``io/checkpoint.py``; --resume continues from the latest
-step), and the best model as a reference-named state_dict at
---model_val_path, which ``io/weights.py::load_weights`` and
-``generate_result --file_weight`` read. --streaming_ft fine-tunes through
-the streaming forward instead (``training/streaming_ft.py``).
+Trains visual ViNet, or AViNet with --use_sound True (its refinement
+encoder with --use_transformer True), with Adam on --device (default cuda;
+asking for cuda without a card raises). Data: DHF1KDataset, Hollywood/UCF
+(HollywoodUCFDataset), or SoundDataset, the six audio-visual sets of the
+STAViS layout under --train_path_data in train mode, validated on the same
+six in test mode (--split picks the fold lists; --val_path_data is not
+read, as in the JAX package). SoundDataset decodes its frames at the
+model's --input_h x --input_w; the other sets at 224 x 384.
 
---multihost, --model_axis > 1 and --dataset SoundDataset are not ported yet
-and stop at startup.
+Each epoch ends with BatchNorm recalibration (--bn_recal, the audio's
+statistics too), validation (an f32 forward in eval mode with the window's
+audio, resized to the native GT size, blurred, then loss / cc / sim; on a
+card the decoder ends in the fused head kernel), a full train-state
+checkpoint under --checkpoint_dir (``io/checkpoint.py``; --resume continues
+from the latest step with the same dropout stream), and the best model as a
+reference-named state_dict at --model_val_path (``io/export.py``), which
+``io/weights.py::load_weights``, ``generate_result --file_weight`` and
+``generate_result_audio_visual --file_weight`` read. --streaming_ft
+fine-tunes visual ViNet through the streaming forward instead
+(``training/streaming_ft.py``).
 
-Usage (DHF1K):
+--multihost and --model_axis > 1 are not ported yet and stop at startup, as
+does --streaming_ft with --use_sound True (the JAX package's too).
+
+Usage (DHF1K; the six AV sets: --dataset SoundDataset --split 1
+--use_sound True --train_path_data STAVIS_ROOT):
   python -m vinet_tpu_torch.cli.train --train_path_data D/annotation \
       --val_path_data D/val --no_epochs 40 --batch_size 8 --bf16 \
       [--file_weight S3D_kinetics400.pt] [--checkpoint_dir ck --resume]
@@ -58,6 +69,8 @@ def build_parser():
     p.add_argument("--dataset", type=str, default="DHF1KDataset",
                    choices=["DHF1KDataset", "SoundDataset", "Hollywood", "UCF"])
     p.add_argument("--alternate", type=int, default=1)
+    p.add_argument("--split", type=int, default=-1,
+                   help="SoundDataset: the fold lists' split (DIEM's have none)")
     p.add_argument("--multi_frame", type=int, default=0)
     p.add_argument("--model_val_path", type=str, default="vinet_best.pt",
                    help="best-validation weights, a reference-named state_dict (.pt)")
@@ -98,15 +111,11 @@ def check_supported(args) -> None:
         raise SystemExit("--multihost is not ported to vinet_tpu_torch yet")
     if args.model_axis != 1:
         raise SystemExit("--model_axis > 1 is not ported to vinet_tpu_torch yet")
-    if args.dataset == "SoundDataset":
-        raise SystemExit("--dataset SoundDataset (audio-visual) is not ported to "
-                         "vinet_tpu_torch yet")
-    if args.use_sound:
-        raise SystemExit("--use_sound True (audio-visual training) is not ported to "
-                         "vinet_tpu_torch yet")
     if args.batch_size % args.grad_accum:
         raise SystemExit("--batch_size must be divisible by --grad_accum")
     if args.streaming_ft:
+        if args.use_sound:
+            raise SystemExit("--streaming_ft fine-tunes visual ViNet only, not --use_sound True")
         if args.grad_accum != 1:
             raise SystemExit("--grad_accum is not supported with --streaming_ft (the "
                              "chunked step already amortises the backbone; scale "
@@ -126,13 +135,23 @@ def loss_config(args):
 
 
 def make_datasets(args):
-    from vinet_tpu_torch.data.datasets import DHF1KDataset, HollywoodUCFDataset
+    from vinet_tpu_torch.cli.common import model_input_size
+    from vinet_tpu_torch.data.datasets import (AV_DATASETS, ConcatDataset, DHF1KDataset,
+                                               HollywoodUCFDataset, SoundDataset)
 
     if args.dataset == "DHF1KDataset":
         train = DHF1KDataset(args.train_path_data, args.clip_size, mode="train",
                              multi_frame=args.multi_frame, alternate=args.alternate)
         val = (DHF1KDataset(args.val_path_data, args.clip_size, mode="val",
                             alternate=args.alternate) if args.val_path_data else None)
+    elif args.dataset == "SoundDataset":
+        sets = {mode: ConcatDataset([SoundDataset(args.train_path_data, args.clip_size,
+                                                  dataset_name=ds, split=args.split, mode=mode,
+                                                  use_sound=args.use_sound,
+                                                  size=model_input_size(args))
+                                     for ds in AV_DATASETS])
+                for mode in ("train", "test")}
+        train, val = sets["train"], sets["test"]
     else:
         train = HollywoodUCFDataset(args.train_path_data, args.clip_size, mode="train",
                                     multi_frame=args.multi_frame)
@@ -142,7 +161,8 @@ def make_datasets(args):
 
 
 def build_train_model(args, device):
-    """ViNet with --file_weight, then --load_weight, in f32 on device."""
+    """ViNet (AViNet with --use_sound True) with --file_weight, then
+    --load_weight, in f32 on device."""
     from vinet_tpu_torch.cli.common import build_model, has_weights
     from vinet_tpu_torch.io.weights import load_model_weights
 
@@ -153,12 +173,26 @@ def build_train_model(args, device):
 
 
 def save_best(args, model, epoch: int) -> None:
+    from vinet_tpu_torch.io.export import export_torch_checkpoint
+
     print("[%2d,  save, %s]" % (epoch, args.model_val_path), flush=True)
-    torch.save(model.state_dict(), args.model_val_path)
+    export_torch_checkpoint(args.model_val_path, model)
 
 
 def _upload(host: np.ndarray, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.asarray(host, dtype)).to(device)
+
+
+def to_device(batch: dict, device) -> dict:
+    """A host batch on device: the clip normalised there, the GT and the
+    audio (where the batch has it) as f32."""
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+
+    out = {"clip": device_preprocess(_upload(batch["clip"], device))}
+    for k in ("gt", "audio"):
+        if k in batch:
+            out[k] = _upload(batch[k], device, np.float32)
+    return out
 
 
 def run_streaming_ft(args, device) -> int:
@@ -231,17 +265,18 @@ def run_streaming_ft(args, device) -> int:
 
 
 def validate(model, val_loader, loss_cfg, device) -> tuple:
-    """The reference's validation: f32 maps in eval mode, resized to the
-    native GT size, blurred; mean (loss, cc, sim) over the batches."""
-    from vinet_tpu_torch.data.pipeline import device_preprocess
+    """The reference's validation: f32 maps in eval mode (with the window's
+    audio for AViNet), resized to the native GT size, blurred; mean (loss,
+    cc, sim) over the batches."""
     from vinet_tpu_torch.ops.image import gaussian_blur, resize_bilinear
     from vinet_tpu_torch.training.losses import cc, loss_func, similarity
     from vinet_tpu_torch.training.trainer import AverageMeter, predict
 
     vl, vc, vs = AverageMeter(), AverageMeter(), AverageMeter()
-    for batch in val_loader:
-        pred = predict(model, device_preprocess(_upload(batch["clip"], device)))
-        gt = _upload(batch["gt"], device, np.float32)
+    for host in val_loader:
+        batch = to_device(host, device)
+        pred = predict(model, batch["clip"], batch.get("audio"))
+        gt = batch["gt"]
         pred = gaussian_blur(resize_bilinear(pred, *gt.shape[1:]))
         vl.update(float(loss_func(pred, gt, loss_cfg)))
         vc.update(float(cc(pred, gt)))
@@ -250,7 +285,7 @@ def validate(model, val_loader, loss_cfg, device) -> tuple:
 
 
 def run(args) -> int:
-    from vinet_tpu_torch.data.pipeline import Loader, device_preprocess
+    from vinet_tpu_torch.data.pipeline import Loader
     from vinet_tpu_torch.device import resolve_device
     from vinet_tpu_torch.io.checkpoint import latest_step, restore_checkpoint, save_checkpoint
     from vinet_tpu_torch.training.trainer import (AverageMeter, init_train_state,
@@ -281,7 +316,7 @@ def run(args) -> int:
     step_fn = make_train_step(loss_cfg, compute_dtype=torch.bfloat16 if args.bf16 else None,
                               grad_accum=args.grad_accum)
     stats_fn = make_bn_stats_fn(model) if args.bn_recal else None
-    calib_host = []  # host clips kept for BN recalibration
+    calib_host = []  # host batches kept for BN recalibration
     best_loss = float("inf")
     for epoch in range(args.no_epochs):
         tic = time.time()
@@ -290,9 +325,8 @@ def run(args) -> int:
             if args.max_steps_per_epoch and idx >= args.max_steps_per_epoch:
                 break
             if len(calib_host) < args.bn_recal:
-                calib_host.append(batch["clip"])
-            ts, metrics = step_fn(ts, {"clip": device_preprocess(_upload(batch["clip"], device)),
-                                       "gt": _upload(batch["gt"], device, np.float32)})
+                calib_host.append({k: v for k, v in batch.items() if k in ("clip", "audio")})
+            ts, metrics = step_fn(ts, to_device(batch, device))
             loss = float(metrics["loss"])
             total.update(loss)
             cur.update(loss)
@@ -303,8 +337,7 @@ def run(args) -> int:
         print("[%2d, train] avg_loss : %.5f" % (epoch, total.avg), flush=True)
 
         if calib_host:
-            recalibrate_bn(model, ({"clip": device_preprocess(_upload(c, device))}
-                                   for c in calib_host), stats_fn=stats_fn)
+            recalibrate_bn(model, (to_device(b, device) for b in calib_host), stats_fn=stats_fn)
         if val_loader is not None:
             val_loss, val_cc, val_sim = validate(model, val_loader, loss_cfg, device)
             print("[%2d, val] avg_loss : %.5f cc_loss : %.5f sim_loss : %.5f, time : %3f"

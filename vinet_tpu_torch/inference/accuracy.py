@@ -13,8 +13,9 @@ for key.
 window with its excerpt of a ``synthetic_audio_info`` waveform, and scores
 their agreement only: with a visual fixture checkpoint the fusion branch is
 seeded, and CC against ground truth of an untrained fusion is noise.
-``av_fixture_model`` builds such an AViNet: the visual branch from the
-fixture, the audio and fusion weights from a numpy seed.
+``av_fixture_model`` builds such an AViNet (or, with fusion, an
+AViNetFusion): the visual branch from the fixture, the audio and fusion
+weights from a numpy seed.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from vinet_tpu_torch.inference.engine import SlidingWindowPredictor
 from vinet_tpu_torch.inference.streaming import AVStreamingPredictor, StreamingPredictor
 from vinet_tpu_torch.io.weights import load_model_weights
 from vinet_tpu_torch.metrics.saliency import cc_score
-from vinet_tpu_torch.models import AViNet, ViNet
+from vinet_tpu_torch.models import AViNet, AViNetFusion, ViNet
 
 
 def _predictors(model, *, dtype, batch, chunk, device):
@@ -155,8 +156,8 @@ def evaluate_av_agreement(model, *, kinds=None, n_frames=96, seed=100, dtype=tor
 
 
 def seeded_av_leaves(model: torch.nn.Module, seed: int = 0) -> dict:
-    """Numpy-seeded values for every tensor of an AViNet (or of one of its
-    modules) outside the visual model, by name, drawn in the order of the
+    """Numpy-seeded values for every tensor of an AViNet or AViNetFusion (or
+    of one of their modules) outside the visual model, by name, drawn in the order of the
     sorted names: conv, linear and bilinear weights N(0, 1/fan_in), their
     biases N(0, 0.01²); BatchNorm and LayerNorm weight 1 + N(0, 0.01) and
     bias N(0, 0.01), BatchNorm mean N(0, 0.01) and var 1 + |N(0, 0.01)|. The
@@ -181,12 +182,14 @@ def seeded_av_leaves(model: torch.nn.Module, seed: int = 0) -> dict:
 
 
 def av_fixture_model(path, *, seed: int = 0, use_transformer: bool = False,
-                     input_hw=(224, 384)) -> AViNet:
-    """AViNet(3, 32) in f32 on the CPU: the visual model from a committed
+                     input_hw=(224, 384), fusion: bool = False) -> AViNet | AViNetFusion:
+    """AViNet(3, 32), or with fusion AViNetFusion(512) (use_transformer
+    does not apply), in f32 on the CPU: the visual model from a committed
     fixture checkpoint (``load_artifact``), the rest ``seeded_av_leaves``,
     loaded strictly: only the sin/cos table and the BatchNorm counters keep
     the values the model was built with."""
-    model = AViNet(use_transformer=use_transformer, input_hw=tuple(input_hw))
+    model = (AViNetFusion(input_hw=tuple(input_hw)) if fusion else
+             AViNet(use_transformer=use_transformer, input_hw=tuple(input_hw)))
     sd = {f"visual_model.{k}": v for k, v in load_artifact(path).state_dict().items()}
     sd.update(seeded_av_leaves(model, seed))
     sd.update({k: v for k, v in model.state_dict().items()

@@ -2,8 +2,11 @@
 with ``torch.save`` in place of orbax.
 
 One file per step, ``<directory>/step_<step>.pt``, holds the model's
-state_dict (parameters and BatchNorm statistics), the optimizer's state, the
-step and the generator's state; the newest three are kept. The JAX package's
+state_dict (parameters and BatchNorm statistics, SoundNet's and the
+encoders' of an AV model too), the optimizer's state, the step and the
+dropout seed, so a resumed run draws the dropout masks of a run that never
+stopped (``training/trainer.py::dropout_generator``); the newest three are
+kept. The JAX package's
 orbax checkpoints are not read.
 """
 
@@ -36,7 +39,7 @@ def save_checkpoint(directory: str, ts, step: int | None = None) -> str:
     path = _path(directory, step)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({"model": ts.model.state_dict(), "optimizer": ts.optimizer.state_dict(),
-                "step": step, "generator": ts.generator.get_state()}, tmp)
+                "step": step, "dropout_seed": ts.dropout_seed}, tmp)
     os.replace(tmp, path)  # a reader never sees a partial file
     for old in _steps(directory)[:-KEEP]:
         os.remove(_path(directory, old))
@@ -50,7 +53,7 @@ def latest_step(directory: str) -> int | None:
 
 def restore_raw(directory: str, step: int | None = None, map_location="cpu") -> dict:
     """The checkpoint of step (default the latest) as saved: {"model",
-    "optimizer", "step", "generator"}, without a train state to load into."""
+    "optimizer", "step", "dropout_seed"}, without a train state to load into."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -64,5 +67,5 @@ def restore_checkpoint(directory: str, ts, step: int | None = None):
     ts.model.load_state_dict(ck["model"], strict=True)
     ts.optimizer.load_state_dict(ck["optimizer"])
     ts.step = int(ck["step"])
-    ts.generator.set_state(ck["generator"].cpu())
+    ts.dropout_seed = ck["dropout_seed"]
     return ts

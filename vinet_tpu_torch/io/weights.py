@@ -15,9 +15,15 @@ transforms as ``vinet_tpu/io/export.py``):
   * decoder conv1..conv7 -> convtspN.i (under ``visual_model.`` for AViNet)
   * the encoder's layers -> ``transformer.transformer_encoder.layers.N``
     (in_proj_w/in_proj_b -> in_proj_weight/in_proj_bias, LayerNorm
-    scale/bias -> weight/bias), and its sin/cos table, which JAX recomputes
-    and does not store, as ``transformer.pos_encoder.pe`` (max_len =
-    conv_in_1x1's channels)
+    scale/bias -> weight/bias; ``transformer_state_dict``, which maps any
+    transformer subtree, a ``Seq2SeqTransformer``'s too), and its sin/cos
+    table, which JAX recomputes and does not store, as
+    ``transformer.pos_encoder.pe``: max_len = conv_in_1x1's channels for
+    AViNet's refinement encoder, ``pe_len`` (tokens + 3, 339 at 32 x 224 x
+    384) for AViNetFusion's joint encoder (the trees with audio_conv_1x1)
+  * AViNetFusion's audio_conv_1x1 (K, I, O) -> (O, I, K), an nn.Conv1d;
+    the reference's Conv2d (O, I, 1, 1) and its top-level ``pe`` buffer
+    (``tests/torch_ref.py::TAViNetFusion``) load through ``load_weights``
   * an int8 conv of ``vinet_tpu/ops/quant.py`` ({w_q, w_scale, x_scale[, b]})
     -> the buffers of ``ops/quant.py::QuantConv3d``: w_q (DHWIO -> OIDHW, as
     a float weight), w_scale, x_scale, bias; load it with
@@ -71,39 +77,50 @@ def _leaf(key: str, value, path: list) -> torch.Tensor:
 
 
 _ATTN_LEAVES = {"in_proj_w": "in_proj_weight", "in_proj_b": "in_proj_bias"}
+_TRANSFORMER_LEAVES = {"w": "weight", "b": "bias", "tgt_pos": "tgt_pos"}
+FUSION_PE_LEN = 336 + 3  # AViNetFusion's tokens at 32 x 224 x 384, and its 3 audio tokens
 
 
-def _transformer(out: dict, prefix: str, node: dict, max_len: int | None) -> None:
-    """The encoder's layers (``vinet_tpu/io/convert.py:53-69`` inverted) and
-    its sin/cos table."""
-    from vinet_tpu_torch.models.transformer import positional_encoding
-
-    if set(node) != {"layers"}:
-        raise KeyError(f"unhandled transformer subtree: {sorted(node)}")
+def transformer_state_dict(node: dict, prefix: str = "") -> dict:
+    """A JAX transformer subtree (``vinet_tpu/models/transformer.py``'s
+    params, ``vinet_tpu/io/convert.py:53-69`` inverted) -> the port's
+    tensors, named under prefix: attention in_proj_w/in_proj_b ->
+    in_proj_weight/in_proj_bias, LayerNorm scale/bias -> weight/bias,
+    w/b -> weight/bias. The sin/cos tables are not in the trees."""
+    out = {}
 
     def walk(n: dict, path: list) -> None:
         for k, v in n.items():
             if isinstance(v, dict):
                 walk(v, path + [k])
                 continue
-            holder = path[-1]
-            leaf = (_ATTN_LEAVES.get(k) if holder == "self_attn" else
+            holder = path[-1] if path else ""
+            leaf = (_ATTN_LEAVES.get(k) if holder in ("self_attn", "multihead_attn") else
                     {"scale": "weight", "bias": "bias"}.get(k) if holder.startswith("norm") else
-                    _LEAVES.get(k))
+                    _TRANSFORMER_LEAVES.get(k))
             if leaf is None:
                 raise KeyError(f"unhandled transformer leaf: {'.'.join(path + [k])}")
-            out[".".join([prefix, "transformer_encoder"] + path + [leaf])] = _tensor(v)
+            out[".".join(([prefix] if prefix else []) + path + [leaf])] = _tensor(v)
 
-    walk(node["layers"], ["layers"])
-    if max_len is None:
-        raise ValueError(f"{prefix}: no conv_in_1x1 gives the sin/cos table's length")
+    walk(node, [])
+    return out
+
+
+def _transformer(out: dict, prefix: str, node: dict, max_len: int) -> None:
+    """An AV model's encoder: its layers and its sin/cos table."""
+    from vinet_tpu_torch.models.transformer import positional_encoding
+
+    if set(node) != {"layers"}:
+        raise KeyError(f"unhandled transformer subtree: {sorted(node)}")
+    out.update(transformer_state_dict(node, f"{prefix}.transformer_encoder"))
     feat = _tensor(node["layers"]["0"]["self_attn"]["in_proj_w"]).shape[1]
     out[f"{prefix}.pos_encoder.pe"] = positional_encoding(max_len, feat)[:, None, :]
 
 
-def from_jax_trees(params: dict, state: dict) -> dict:
-    """JAX-package ViNet or AViNet (params, state) nested dicts of arrays ->
-    the port's state_dict of tensors (reference names)."""
+def from_jax_trees(params: dict, state: dict, *, pe_len: int = FUSION_PE_LEN) -> dict:
+    """JAX-package ViNet, AViNet or AViNetFusion (params, state) nested dicts
+    of arrays -> the port's state_dict of tensors (reference names). pe_len:
+    the length of AViNetFusion's sin/cos table, its tokens + 3."""
     out: dict = {}
 
     def walk(p_node: dict, s_node: dict, path: list) -> None:
@@ -112,7 +129,12 @@ def from_jax_trees(params: dict, state: dict) -> dict:
             sv = s_node.get(k, {}) if isinstance(s_node, dict) else {}
             if k == "transformer" and not path:
                 cin = p_node.get("conv_in_1x1", {}).get("w")
-                _transformer(out, name, v, None if cin is None else np.shape(cin)[-1])
+                if "audio_conv_1x1" in p_node:
+                    _transformer(out, name, v, pe_len)
+                elif cin is None:
+                    raise ValueError(f"{name}: no conv_in_1x1 gives the sin/cos table's length")
+                else:
+                    _transformer(out, name, v, np.shape(cin)[-1])
             elif k == "decoder" and path in ([], ["visual_model"]):
                 table = decoder_names("conv6" in v)
                 for conv, node in v.items():
@@ -169,8 +191,9 @@ def s3d_kinetics_remap(sd: dict) -> dict:
 
 
 def _soundnet_conv1d(name: str, t: torch.Tensor) -> torch.Tensor:
-    """A SoundNet conv weight as the port's nn.Conv1d takes it: the
-    reference's Conv2d (O, I, k, 1) (or (O, I, 1, k)) -> (O, I, k)."""
+    """A SoundNet (or AViNetFusion audio_conv_1x1) conv weight as the port's
+    nn.Conv1d takes it: the reference's Conv2d (O, I, k, 1) (or (O, I, 1,
+    k)) -> (O, I, k)."""
     if name.endswith(".weight") and t.dim() == 4:
         if 1 not in t.shape[2:]:
             raise ValueError(f"{name}: not a 1-D conv weight {tuple(t.shape)}")
@@ -178,16 +201,18 @@ def _soundnet_conv1d(name: str, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def load_weights(path: str) -> dict:
-    """A state_dict for the port's ViNet or AViNet from a JAX-package .npz or
-    a reference .pt state_dict (SoundNet's Conv2d weights made 1-D). Load it
-    with load_state_dict(strict=True), or with ``load_model_weights``. Two
-    partial files give their entries alone: an S3D Kinetics-400 backbone
-    (S3D_kinetics400.pt, flat 'base.N.*' names) under 'backbone.', and a
-    SoundNet state_dict (soundnet8_final.pth, 'convN.*'/'batchnormN.*')
-    under 'audionet.'."""
+def load_weights(path: str, *, pe_len: int = FUSION_PE_LEN) -> dict:
+    """A state_dict for the port's ViNet, AViNet or AViNetFusion from a
+    JAX-package .npz or a reference .pt state_dict (SoundNet's and
+    audio_conv_1x1's Conv2d weights made 1-D, a top-level 'pe' table as
+    'transformer.pos_encoder.pe'). Load it with load_state_dict(strict=True),
+    or with ``load_model_weights``. Two partial files give their entries
+    alone: an S3D Kinetics-400 backbone (S3D_kinetics400.pt, flat 'base.N.*'
+    names) under 'backbone.', and a SoundNet state_dict
+    (soundnet8_final.pth, 'convN.*'/'batchnormN.*') under 'audionet.'.
+    pe_len: as ``from_jax_trees``'s, for an .npz."""
     if path.endswith(".npz"):
-        return from_jax_trees(*load_npz_trees(path))
+        return from_jax_trees(*load_npz_trees(path), pe_len=pe_len)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
@@ -198,7 +223,9 @@ def load_weights(path: str) -> dict:
                 if k.startswith("base")}
     if sd and all(k.split(".")[0].startswith(("conv", "batchnorm")) for k in sd):
         sd = {f"audionet.{k}": v for k, v in sd.items()}  # SoundNet alone
-    return {k: _soundnet_conv1d(k, v) if k.startswith("audionet.") else v
+    if "pe" in sd:  # the reference twin's table, outside its transformer
+        sd["transformer.pos_encoder.pe"] = sd.pop("pe")
+    return {k: _soundnet_conv1d(k, v) if k.startswith(("audionet.", "audio_conv_1x1.")) else v
             for k, v in sd.items()}
 
 
@@ -207,7 +234,8 @@ def load_model_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     from a file that holds only a part, that part alone (the rest keeps its
     weights): the S3D backbone (of ViNet, or of AViNet's visual model), or
     AViNet's SoundNet. Returns model."""
-    sd = load_weights(path)
+    pe = getattr(getattr(model, "transformer", None), "pos_encoder", None)
+    sd = load_weights(path, pe_len=FUSION_PE_LEN if pe is None else pe.pe.shape[0])
     for part in ("backbone", "audionet"):
         if all(k.startswith(part + ".") for k in sd):
             owner = model.visual_model if part == "backbone" and hasattr(model, "visual_model") \

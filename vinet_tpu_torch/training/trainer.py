@@ -1,25 +1,36 @@
 """Train and eval steps, ``vinet_tpu/training/trainer.py`` in PyTorch.
 
 The train state holds the model (its parameters and BatchNorm statistics),
-the Adam optimizer, the step count and a ``torch.Generator`` in place of the
-JAX package's dropout key: visual ViNet draws nothing from it, the state
-carries it so that checkpoints of models with dropout restore their stream.
+the Adam optimizer, the step count and the dropout seed, the counterpart of
+the JAX package's dropout key. A model whose ``forward`` takes a
+``generator`` (AViNet, AViNetFusion: the dropout of their encoders) gets in
+each step a fresh ``torch.Generator`` on the batch's device seeded from
+(seed, step), and with grad_accum N each microbatch i one from (seed, step,
+i) (``dropout_generator``), as the JAX step folds the step and then i into
+its key: the masks of a step depend on the seed and the step alone, so a
+resumed run draws the same ones as a run that never stopped. The bits are
+not JAX's threefry bits. A state with ``dropout_seed=None`` trains without
+dropout, as a JAX state without ``"rng"`` does; visual ViNet draws nothing.
 
 A train step is one forward of the model in training mode (BatchNorm on
 batch statistics, the decoder's plain graph: ``models/decoder.py``), the
 loss, the backward and one Adam update. With ``compute_dtype=torch.bfloat16``
 the convolutions run in bf16 under autocast while the master weights, the
-Adam state, the BatchNorm statistics and the loss stay f32. The eval step
-runs the model in eval mode without autograd, so on a card its decoder ends
-in the fused head kernel.
+Adam state, the BatchNorm statistics and the loss stay f32. A batch with
+``"audio"`` hands the waveforms to the model after the clip, in the train
+step, the BatchNorm statistics, ``predict`` and the eval step alike. The
+eval step runs the model in eval mode without autograd, so on a card its
+decoder ends in the fused head kernel.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -45,16 +56,37 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
-    generator: torch.Generator = dataclasses.field(default_factory=torch.Generator)
+    dropout_seed: int | None = None  # None: no dropout
     lr_schedule: Callable[[int], float] | None = None  # step -> lr; None keeps Adam's lr
 
 
-def init_train_state(model: nn.Module, lr: float = 1e-4, *, seed: int = 0,
+def init_train_state(model: nn.Module, lr: float = 1e-4, *, seed: int | None = 0,
                      lr_schedule: Callable[[int], float] | None = None) -> TrainState:
     """The train state of a model whose weights are loaded: a fresh Adam
-    state, step 0, and the generator seeded from seed."""
+    state, step 0, and seed as the dropout seed (None: no dropout)."""
     return TrainState(model=model, optimizer=adam(model.parameters(), lr),
-                      generator=torch.Generator().manual_seed(seed), lr_schedule=lr_schedule)
+                      dropout_seed=seed, lr_schedule=lr_schedule)
+
+
+def dropout_generator(seed: int | None, device, *keys: int) -> torch.Generator | None:
+    """A torch.Generator on device seeded from (seed, *keys) through numpy's
+    SeedSequence, the counterpart of ``jax.random.fold_in``; None for seed
+    None."""
+    if seed is None:
+        return None
+    state = np.random.SeedSequence([int(seed), *map(int, keys)]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def takes_generator(model: nn.Module) -> bool:
+    """Whether model's forward takes a dropout generator."""
+    return "generator" in inspect.signature(model.forward).parameters
+
+
+def _inputs(batch: dict) -> tuple:
+    """The model's positional inputs of a batch: the clip, and the audio
+    where the batch has it."""
+    return (batch["clip"],) if batch.get("audio") is None else (batch["clip"], batch["audio"])
 
 
 @contextlib.contextmanager
@@ -98,26 +130,32 @@ def make_train_step(loss_cfg: LossConfig, *, compute_dtype: torch.dtype | None =
     """step(ts, batch) -> (ts, {"loss", "grad_norm"}), updating ts in place.
 
     batch: {"clip": (B, T, H, W, 3) normalised, "gt": (B, H, W) or
-    (B, Cl, H, W)}, on the model's device.
+    (B, Cl, H, W), optional "audio": (B, L, 1)}, on the model's device.
 
     grad_accum=N runs N microbatches of B/N clips in order and makes one
     Adam step on the mean of their gradients: each microbatch normalises by
     its own batch statistics and the running statistics thread through the
     N forwards in order, as N consecutive forwards would. The loss returned
-    is the mean of the microbatches' losses."""
+    is the mean of the microbatches' losses. Dropout: see the module's
+    docstring."""
 
     def step(ts: TrainState, batch: dict):
         model = ts.model
-        clip, gt = batch["clip"], batch["gt"]
-        if clip.shape[0] % grad_accum:
-            raise ValueError(f"batch {clip.shape[0]} is not divisible by grad_accum {grad_accum}")
+        n = batch["clip"].shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch {n} is not divisible by grad_accum {grad_accum}")
+        dev = batch["clip"].device
+        draws = takes_generator(model)
         model.train()
         ts.optimizer.zero_grad(set_to_none=True)
         losses = []
-        for c, g in zip(clip.chunk(grad_accum), gt.chunk(grad_accum)):
-            with autocast(c.device, compute_dtype):
-                pred = model(c)
-            loss = loss_func(pred.float(), g.float(), loss_cfg)
+        for i in range(grad_accum):
+            mb = {k: v.chunk(grad_accum)[i] for k, v in batch.items() if v is not None}
+            keys = (ts.step,) if grad_accum == 1 else (ts.step, i)
+            kw = {"generator": dropout_generator(ts.dropout_seed, dev, *keys)} if draws else {}
+            with autocast(dev, compute_dtype):
+                pred = model(*_inputs(mb), **kw)
+            loss = loss_func(pred.float(), mb["gt"].float(), loss_cfg)
             (loss / grad_accum).backward()
             losses.append(loss.detach())
         grad_norm = apply_update(ts)
@@ -127,18 +165,18 @@ def make_train_step(loss_cfg: LossConfig, *, compute_dtype: torch.dtype | None =
 
 
 def make_bn_stats_fn(model: nn.Module) -> Callable:
-    """stats(clip) -> {BatchNorm name: (batch mean, unbiased batch var)}: a
-    train-mode forward without autograd under override_momentum(1.0). The
-    model's running statistics, its modes and its momenta are left as they
-    were."""
+    """stats(clip[, audio]) -> {BatchNorm name: (batch mean, unbiased batch
+    var)} of every BatchNorm (SoundNet's too): a train-mode forward without
+    autograd or dropout under override_momentum(1.0). The model's running
+    statistics, its modes and its momenta are left as they were."""
     bns = batchnorms(model)
 
-    def stats(clip: torch.Tensor) -> dict:
+    def stats(clip: torch.Tensor, audio: torch.Tensor | None = None) -> dict:
         saved = {n: [t.clone() for t in (m.running_mean, m.running_var, m.num_batches_tracked)]
                  for n, m in bns.items()}
         with kept_modes(model), override_momentum(model, 1.0), torch.no_grad():
             model.train()
-            model(clip)
+            model(*_inputs({"clip": clip, "audio": audio}))
             out = {n: (m.running_mean.clone(), m.running_var.clone()) for n, m in bns.items()}
             for n, m in bns.items():
                 for t, v in zip((m.running_mean, m.running_var, m.num_batches_tracked), saved[n]):
@@ -150,14 +188,14 @@ def make_bn_stats_fn(model: nn.Module) -> Callable:
 
 def recalibrate_bn(model: nn.Module, batches, *, stats_fn: Callable | None = None) -> dict:
     """Replace every BatchNorm's running statistics with the mean of the
-    per-batch statistics over batches ({"clip": ...} dicts): the fix for
+    per-batch statistics over batches ({"clip": ...[, "audio": ...]} dicts): the fix for
     from-scratch training, where momentum 0.001 leaves the running
     statistics near their initial values for thousands of steps. Returns
     the new statistics ({} and no change for no batches)."""
     stats_fn = stats_fn or make_bn_stats_fn(model)
     acc, n = {}, 0
     for b in batches:
-        s = stats_fn(b["clip"])
+        s = stats_fn(*_inputs(b))
         n += 1
         acc = s if n == 1 else {k: tuple(a + (v - a) / n for a, v in zip(acc[k], s[k]))
                                 for k in acc}
@@ -169,20 +207,22 @@ def recalibrate_bn(model: nn.Module, batches, *, stats_fn: Callable | None = Non
     return acc
 
 
-def predict(model: nn.Module, clip: torch.Tensor) -> torch.Tensor:
+def predict(model: nn.Module, clip: torch.Tensor,
+            audio: torch.Tensor | None = None) -> torch.Tensor:
     """(B, H, W) f32 maps of the model in eval mode without autograd (on a
-    card through the fused head kernel); the model's modes are restored."""
+    card through the fused head kernel), with the audio for an AV model;
+    the model's modes are restored."""
     with kept_modes(model), torch.no_grad():
         model.eval()
-        return model(clip).float()
+        return model(*_inputs({"clip": clip, "audio": audio})).float()
 
 
 def make_eval_step(loss_cfg: LossConfig) -> Callable:
     """step(ts, batch) -> ({"loss", "cc", "sim"}, pred): ``predict`` on the
-    batch's clips and the metrics at the model's resolution."""
+    batch's clips (and audio) and the metrics at the model's resolution."""
 
     def step(ts: TrainState, batch: dict):
-        pred = predict(ts.model, batch["clip"])
+        pred = predict(ts.model, batch["clip"], batch.get("audio"))
         gt = batch["gt"]
         return {"loss": loss_func(pred, gt, loss_cfg), "cc": cc(pred, gt),
                 "sim": similarity(pred, gt)}, pred
