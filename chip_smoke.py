@@ -107,11 +107,32 @@ fails. Phases, each printing one JSON line:
    --use_transformer True --bf16`` on the six STAViS sets (3 videos x 40
    frames each) with validation, a checkpoint and --resume with --bn_recal.
 
-Phases 6-14 set the launch counts to 0 before their path, read them after,
-and fail unless the fused head launched (phases 11 and 14: in the eval steps
-and the CLI's validation, and never in a train step). Then one line lists every kernel
-with its numbers (the head's launches on every path), and the last line is
-``{"ok": true, "device": {...}}``.
+15. parallel: the parallel paths (``vinet_tpu_torch/parallel``) as one rank
+   of a world of 1 over NCCL, in a child process started with the spawn
+   method (the VINET_* bring-up of ``utils/runtime.py::init_distributed``),
+   whose process group ends with it; ViNet(3, 32) with the fixture weights
+   at 224 x 384: the parity predictor with ``mesh=`` (bf16, batch 16) on
+   phase cli's first video equals the predictor without one;
+   ``generate_result --data_parallel`` writes phase cli's PNGs byte for
+   byte; the train step over a mesh whose data group is the world
+   (``SyncBatchNorm`` for every BatchNorm and the gradient all-reduce, over
+   NCCL) at batch 8: its f32 loss within 1e-5 of the unsharded step's, its
+   bf16 step time and peak memory beside the unsharded step's, timed in
+   turn in the same process (and phase train's); ``train
+   --multihost`` (2 steps at batch 8, validation through the head, rank 0's
+   checkpoint, --resume); ``serve --stream_parallel --streams 4`` writes
+   phase serve's PNGs byte for byte; ``streaming_pyramid_tsharded`` on a
+   128-frame chunk against ``streaming_pyramid`` in f32 on a seeded
+   ViNet(3, 32), as the JAX test's random init (interior within rtol/atol
+   1e-4, edges within 0.1), and on the fixture's weights (reported). Two ranks on one card are not tried
+   (NCCL refuses a duplicate GPU): multi-rank exactness is the CPU tests'
+   (``tests/test_torch_parallel*.py``, gloo).
+
+Phases 6-15 set the launch counts to 0 before their path, read them after,
+and fail unless the fused head launched (phases 11, 14 and 15: in the eval
+steps and the CLI's validation, and never in a train step). Then one line
+lists every kernel with its numbers (the head's launches on every path), and
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -124,6 +145,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -806,8 +828,9 @@ def _check_maps_written(data: str, out: str, n_videos: int, size: tuple) -> None
               f"video {name}: map {m.shape} {m.dtype} [{m.min()}, {m.max()}]")
 
 
-def phase_cli(torch) -> dict:
-    """The main path: the port's generate_result CLI on the card."""
+def phase_cli(torch, keep: str) -> dict:
+    """The main path: the port's generate_result CLI on the card. Its frames
+    and maps are copied to keep (data/, out/) for phase parallel."""
     from vinet_tpu_torch.cli.generate_result import main as generate_main
 
     n_videos, n_frames, size = 2, 80, (360, 640)
@@ -823,6 +846,7 @@ def phase_cli(torch) -> dict:
         launches = _launch_counts()
         check(rc == 0, f"generate_result returned {rc}")
         _check_maps_written(data, out, n_videos, size)
+        shutil.copytree(tmp, keep)
     n_maps = n_videos * n_frames  # one window per map, flipped for the first 31
     emit({"phase": "cli", "videos": n_videos, "frames": n_frames, "frame_size": list(size),
           "maps": n_maps, "window_batches": n_videos * -(-n_frames // 16),
@@ -1116,8 +1140,10 @@ def phase_live(torch) -> dict:
     return rec
 
 
-def phase_serve(torch) -> dict:
-    """cli.serve --streams 4 --live_micro 32, and one serve step's device time."""
+def phase_serve(torch, keep: str) -> dict:
+    """cli.serve --streams 4 --live_micro 32, and one serve step's device
+    time. Its frames and maps are copied to keep (data/, out/) for phase
+    parallel."""
     import numpy as np
 
     from vinet_tpu_torch.cli.generate_result import live_span
@@ -1137,6 +1163,7 @@ def phase_serve(torch) -> dict:
         launches = _launch_counts()
         check(rc == 0, f"serve returned {rc}")
         _check_maps_written(data, out, streams, size)
+        shutil.copytree(tmp, keep)
 
     server = MultiLiveServer(_fixture_vinet(), streams=streams, micro=micro, batch=micro,
                              span=live_span(32, micro), device="cuda")
@@ -2204,6 +2231,257 @@ def phase_av_train(torch, card: str) -> dict:
     return paths
 
 
+# phase parallel: the synced-BatchNorm f32 step's loss against the unsharded
+# step's, relative: the same math, BatchNorm in two passes against cuDNN's
+PARALLEL_LOSS_TOL = 1e-5
+# streaming_pyramid_tsharded at world 1 against streaming_pyramid, f32: the
+# interior bound and the edge bound of tests/test_streaming.py:140-147, whose
+# edge exclusion is max(56 // f // 8, 4) timeline positions at level rate f
+TSHARD_RTOL = TSHARD_ATOL = 1e-4
+TSHARD_EDGE_TOL = 0.1
+
+
+def _tsharded_errs(ref, got) -> dict:
+    """{level: (interior violation of |g - r| <= atol + rtol |r|, edge max
+    |g - r|)} of the four timelines."""
+    out = {}
+    for name, r, g, f in zip(("y0", "y1", "y2", "y3"), ref, got, (8, 4, 2, 2)):
+        e = max(56 // f // 8, 4)
+        d = (g - r).abs()
+        inner = (d - TSHARD_ATOL - TSHARD_RTOL * r.abs())[:, :, e:-e]
+        out[name] = (float(inner.max()), float(d.max()))
+    return out
+
+
+def _same_files(a: str, b: str) -> tuple:
+    """(files under a, how many differ from b's byte for byte or are missing)."""
+    names = sorted(os.path.relpath(os.path.join(d, f), a)
+                   for d, _, fs in os.walk(a) for f in fs)
+    bad = 0
+    for n in names:
+        with open(os.path.join(a, n), "rb") as fa:
+            other = os.path.join(b, n)
+            if not os.path.exists(other):
+                bad += 1
+                continue
+            with open(other, "rb") as fb:
+                bad += fa.read() != fb.read()
+    return len(names), bad
+
+
+def _parallel_rank(kept: str, result: str, port: int) -> None:
+    """Phase parallel's one rank, in a child process: a world of 1 over
+    NCCL (the VINET_* bring-up), its checks, its record as JSON in result."""
+    os.environ.update(VINET_COORDINATOR=f"localhost:{port}", VINET_NUM_PROCESSES="1",
+                      VINET_PROCESS_ID="0")
+    import torch
+    import torch.distributed as dist
+
+    from vinet_tpu_torch.utils.runtime import init_distributed
+
+    init_distributed("cuda")
+    try:
+        rec = _parallel_checks(torch, kept)
+        with open(result, "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_checks(torch, kept: str) -> dict:
+    import numpy as np
+    import torch.distributed as dist
+
+    from vinet_tpu_torch.cli.generate_result import main as generate_main
+    from vinet_tpu_torch.cli.serve import main as serve_main
+    from vinet_tpu_torch.cli.train import main as train_main
+    from vinet_tpu_torch.inference import SlidingWindowPredictor
+    from vinet_tpu_torch.inference.streaming import streaming_pyramid, streaming_pyramid_tsharded
+    from vinet_tpu_torch.io.checkpoint import latest_step
+    from vinet_tpu_torch.io.images import load_frame
+    from vinet_tpu_torch.models import ViNet
+    from vinet_tpu_torch.ops.norm import SyncBatchNorm, batchnorms
+    from vinet_tpu_torch.parallel import Mesh, create_mesh
+    from vinet_tpu_torch.training import LossConfig
+    from vinet_tpu_torch.training.trainer import init_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False  # as the parent's phases since phase model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh()
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size(), "mesh": mesh.shape}
+    launches = {}
+
+    # 1. the parity predictor with mesh= against without, phase cli's first video
+    frame_dir = os.path.join(kept, "cli", "data", "001", "images")
+    frames = np.stack([load_frame(os.path.join(frame_dir, f), size=(224, 384))[0]
+                       for f in sorted(os.listdir(frame_dir))])
+    plain = dict(SlidingWindowPredictor(_fixture_vinet(), device="cuda").predict_video(frames))
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    sharded = dict(SlidingWindowPredictor(_fixture_vinet(), device="cuda", mesh=mesh)
+                   .predict_video(frames))
+    launches["parallel_parity"] = _launch_counts()
+    rec["parity"] = {"frames": len(frames), "maps_equal": sorted(sharded) == sorted(plain) and all(
+        np.array_equal(sharded[i], plain[i]) for i in plain)}
+
+    # 2. generate_result --data_parallel against phase cli's PNGs
+    out = os.path.join(kept, "parallel_generate")
+    _reset_launch_counts()
+    _, seconds = _run_cli(generate_main, ["--path_indata", os.path.join(kept, "cli", "data"),
+                                          "--save_path", out, "--file_weight", FIXTURE,
+                                          "--device", "cuda", "--data_parallel"])
+    launches["parallel_generate_result"] = _launch_counts()
+    n, bad = _same_files(os.path.join(kept, "cli", "out"), out)
+    rec["generate_result"] = {"pngs": n, "pngs_differing": bad, "seconds": seconds}
+
+    # 3. the synced-BatchNorm train step: a mesh whose data group is the
+    # world of 1 runs SyncBatchNorm and the gradient all-reduce over NCCL
+    synced = Mesh({"data": 1, "model": 1}, (0, 0), {"data": dist.group.WORLD, "model": None})
+    batch = _train_batch(torch, 8, 32, 224, 384, seed=0)
+    f32 = {}
+    for name, m in (("unsharded", None), ("synced", synced)):
+        ts = init_train_state(_fixture_vinet().cuda(), 1e-4, mesh=m)
+        _, metrics = make_train_step(LossConfig(), mesh=m)(ts, batch)
+        f32[name] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+        if m is not None:
+            bns = batchnorms(ts.model).values()
+            f32["sync_batchnorms"] = [sum(isinstance(b, SyncBatchNorm) for b in bns), len(bns)]
+        del ts
+        torch.cuda.empty_cache()
+    f32["loss_rel_err"] = abs(f32["synced"]["loss"] - f32["unsharded"]["loss"]) / abs(
+        f32["unsharded"]["loss"])
+    bf16 = {}
+    for name, m in (("unsharded", None), ("synced", synced)):  # the same run, in turn
+        ts = init_train_state(_fixture_vinet().cuda(), 1e-4, mesh=m)
+        step = make_train_step(LossConfig(), compute_dtype=torch.bfloat16, mesh=m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        losses, step_ms = [], []
+        for _ in range(7):  # 2 warm-up steps, then 5 timed
+            t0 = time.perf_counter()
+            _, metrics = step(ts, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        bf16[name] = {"losses": losses, "step_ms": step_ms,
+                      "step_ms_median": float(np.median(step_ms[2:])),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "step_launches": _launch_counts()}
+        del ts, step
+        torch.cuda.empty_cache()
+    rec["train_step"] = {"f32": f32, "bf16": bf16, "tol": PARALLEL_LOSS_TOL}
+    del batch
+
+    # 4. train --multihost (world 1): validation through the head, rank 0's
+    # checkpoint, --resume
+    clis = {}
+    root = os.path.join(kept, "parallel_train")
+    train_dir, val_dir = os.path.join(root, "train"), os.path.join(root, "val")
+    ck, best = os.path.join(root, "ck"), os.path.join(root, "best.pt")
+    _write_videos(train_dir, 16, 40, (112, 192), maps=True)
+    _write_videos(val_dir, 1, 40, (180, 320), maps=True)
+    common = ["--train_path_data", train_dir, "--val_path_data", val_dir, "--multihost",
+              "--bf16", "--batch_size", "8", "--max_steps_per_epoch", "2", "--no_epochs", "1",
+              "--no_workers", "8", "--device", "cuda", "--load_weight", FIXTURE,
+              "--checkpoint_dir", ck, "--model_val_path", best]
+    for name, extra in (("train", []), ("resume", ["--resume"])):
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        lines, seconds = _run_cli(train_main, common + extra)
+        launches[f"parallel_cli_train_{name}"] = _launch_counts()
+        clis[name] = {"seconds": seconds, "latest_step": latest_step(ck),
+                      "resumed": any("resumed from step 2" in ln for ln in lines),
+                      "val": [ln for ln in lines if "val] avg_loss" in ln]}
+    rec["cli_train"] = {**clis, "best_written": os.path.exists(best)}
+
+    # 5. serve --stream_parallel against phase serve's PNGs
+    out = os.path.join(kept, "parallel_serve")
+    _reset_launch_counts()
+    _, seconds = _run_cli(serve_main, ["--path_indata", os.path.join(kept, "serve", "data"),
+                                       "--save_path", out, "--streams", "4", "--live_micro",
+                                       "32", "--file_weight", FIXTURE, "--device", "cuda",
+                                       "--stream_parallel"])
+    launches["parallel_serve"] = _launch_counts()
+    n, bad = _same_files(os.path.join(kept, "serve", "out"), out)
+    rec["serve"] = {"pngs": n, "pngs_differing": bad, "seconds": seconds}
+
+    # 6. streaming_pyramid_tsharded on a 128-frame chunk against
+    # streaming_pyramid, f32, on a seeded init as the JAX test's; the
+    # fixture's trained weights reported beside it (their zero input frames
+    # and the per-layer zero padding part further at the chunk's edges)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((1, 3, 128, 224, 384), generator=g, device="cuda")
+    rec["tsharded"] = {"frames": 128, "tol": [TSHARD_RTOL, TSHARD_ATOL, TSHARD_EDGE_TOL]}
+    for name in ("seeded", "fixture"):
+        if name == "seeded":
+            torch.manual_seed(0)
+            backbone = ViNet(3, 32).cuda().eval().backbone
+        else:
+            backbone = _fixture_vinet().cuda().eval().backbone
+        with torch.no_grad():
+            rec["tsharded"][name] = _tsharded_errs(
+                streaming_pyramid(backbone, x), streaming_pyramid_tsharded(backbone, x, mesh))
+        del backbone
+        torch.cuda.empty_cache()
+    rec["launches"] = launches
+    return rec
+
+
+def phase_parallel(torch, card: str, kept: str, train: dict) -> dict:
+    """Phase 15: the parallel paths as one NCCL rank (world 1) in a child
+    process, whose process group ends with it; returns the head's launches
+    on each path."""
+    import multiprocessing
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    result = os.path.join(kept, "parallel.json")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    child = multiprocessing.get_context("spawn").Process(
+        target=_parallel_rank, args=(kept, result, port))
+    child.start()
+    child.join(600)
+    if child.is_alive():
+        child.kill()
+        child.join()
+    check(child.exitcode == 0, f"the parallel rank exited with {child.exitcode}")
+    with open(result) as f:
+        rec = json.load(f)
+    rec.update(phase="parallel", card=card, phase_seconds=time.perf_counter() - t_phase,
+               phase_train_bf16_step_ms_median=train["step_ms_median"],
+               phase_train_peak_mem_gb=train["peak_mem_gb"])
+    emit(rec)
+    launches = rec["launches"]
+    check(rec["backend"] == "nccl" and rec["world"] == 1, f"world {rec['world']}, {rec['backend']}")
+    check(rec["parity"]["maps_equal"], "the parity predictor's maps differ with mesh=")
+    check(rec["generate_result"]["pngs"] > 0 and rec["generate_result"]["pngs_differing"] == 0,
+          f"generate_result --data_parallel: {rec['generate_result']}")
+    step = rec["train_step"]
+    check(step["f32"]["loss_rel_err"] <= PARALLEL_LOSS_TOL,
+          f"synced-BatchNorm f32 loss: {step['f32']}")
+    n_sync, n_bn = step["f32"]["sync_batchnorms"]
+    check(n_sync == n_bn > 0, f"{n_sync} of {n_bn} BatchNorms synced")
+    for name, run in step["bf16"].items():
+        check(all(np.isfinite(run["losses"])) and run["losses"][-1] < run["losses"][0]
+              and run["step_launches"]["saliency_head"] == 0,
+              f"bf16 {name} steps: {run['losses']}, launches {run['step_launches']}")
+    cli = rec["cli_train"]
+    check(cli["best_written"] and cli["train"]["latest_step"] == 2
+          and cli["resume"]["latest_step"] == 4 and cli["resume"]["resumed"],
+          f"train --multihost: {cli}")
+    check(rec["serve"]["pngs"] > 0 and rec["serve"]["pngs_differing"] == 0,
+          f"serve --stream_parallel: {rec['serve']}")
+    for level, (inner, edge) in rec["tsharded"]["seeded"].items():
+        check(inner <= 0 and edge <= TSHARD_EDGE_TOL, f"tsharded {level}: {inner}, {edge}")
+    for path in ("parallel_parity", "parallel_generate_result", "parallel_cli_train_train",
+                 "parallel_cli_train_resume", "parallel_serve"):
+        _require_head(launches[path], path)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2221,10 +2499,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_model(torch)
     int8_launches = phase_int8_model(torch)
-    cli_launches = phase_cli(torch)
+    kept = tempfile.TemporaryDirectory()  # phase cli's and phase serve's files, for parallel
+    cli_launches = phase_cli(torch, os.path.join(kept.name, "cli"))
     paths = {"cli": cli_launches}
     for name, phase in (("phasefold_tail", phase_phasefold), ("streaming", phase_streaming),
-                        ("live", phase_live), ("serve", phase_serve)):
+                        ("live", phase_live),
+                        ("serve", lambda t: phase_serve(t, os.path.join(kept.name, "serve")))):
         paths[name] = phase(torch)["launches"]
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
@@ -2239,6 +2519,9 @@ def main() -> int:
     paths.update(phase_av(torch))
     torch.cuda.empty_cache()
     paths.update(phase_av_train(torch, card))
+    torch.cuda.empty_cache()
+    with kept:
+        paths.update(phase_parallel(torch, card, kept.name, train))
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():

@@ -169,7 +169,8 @@ def test_port_imports_neither_jax_nor_vinet_tpu():
     names = {p.relative_to(REPO / "vinet_tpu_torch").as_posix() for p in sources[:-2]}
     assert {"models/soundnet.py", "models/transformer.py", "models/avinet.py", "data/audio.py",
             "cli/generate_result_audio_visual.py", "cli/generate_result_dave.py",
-            "cli/generate_theatre.py"} <= names
+            "cli/generate_theatre.py", "parallel/mesh.py", "parallel/partition.py",
+            "parallel/collectives.py"} <= names
     for path in sources:
         for name in _imports(path):
             top = name.split(".")[0]

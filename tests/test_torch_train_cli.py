@@ -3,8 +3,10 @@ directory of ``tests/fixtures.py`` (frames resized to 224 x 384, clip 8,
 batch 2): one step with validation and a checkpoint, then --resume goes on
 from its step; the best model is a reference-named state_dict that
 ``load_weights`` and ``generate_result --file_weight`` read; --streaming_ft
-leaves the BatchNorm statistics as they were. What the port does not do yet
-stops at startup, as does --streaming_ft with --use_sound True.
+leaves the BatchNorm statistics as they were. What the CLI does not do
+stops at startup: --multihost with --model_axis 2 (the JAX CLI's message), a
+model axis of 2 in a world of one process (create_mesh's), --streaming_ft
+with --use_sound True.
 
 On a six-dataset STAViS layout (one ``make_sound_dataset`` call per name of
 ``AV_DATASETS`` into one root, frames decoded at the model's 64 x 96):
@@ -84,13 +86,24 @@ def test_streaming_ft_keeps_bn_statistics(dirs):
 
 
 @pytest.mark.parametrize("extra, message", [
-    (("--multihost",), "--multihost"),
+    (("--multihost", "--model_axis", "2"), "--multihost"),
     (("--model_axis", "2"), "--model_axis"),
     (("--use_sound", "True", "--streaming_ft"), "--streaming_ft fine-tunes visual ViNet only"),
     (("--grad_accum", "3"), "divisible"),
     (("--streaming_ft", "--ft_chunk", "12"), "--ft_chunk"),
 ])
 def test_what_is_not_ported_stops_at_startup(dirs, extra, message):
+    with pytest.raises(SystemExit, match=message):
+        train_main(_args(dirs, *extra))
+
+
+@pytest.mark.parametrize("extra, message", [
+    (("--multihost", "--model_axis", "2"), "^--multihost with --model_axis>1 is unsupported"),
+    (("--model_axis", "2"), "not divisible by model=2"),
+])
+def test_parallel_flags_stop_with_jax_messages(dirs, extra, message):
+    """The JAX CLI's startup refusal of --multihost with a model axis, and
+    create_mesh's of a model axis that one process cannot hold."""
     with pytest.raises(SystemExit, match=message):
         train_main(_args(dirs, *extra))
 

@@ -14,10 +14,19 @@ a time to the live server (``inference/live.py``), which emits each map with
 a constant lag. Both see real temporal neighbours at window edges where the
 reference zero-pads, so their maps differ from the default mode's.
 
+--data_parallel splits each window batch over the processes of a
+torch.distributed world (``utils/runtime.py::init_distributed``: torchrun's
+variables or the VINET_* ones; one process without either): every process
+walks the same videos and rank 0 writes the maps. --window_batch must be
+divisible by the number of processes.
+
 Usage:
   python -m vinet_tpu_torch.cli.generate_result --path_indata DIR \
       --save_path OUT --file_weight ViNet_DHF1K.pt [--device cuda] \
       [--streaming [--chunk 128] | --live [--live_micro 16]]
+On N cards of one host:
+  torchrun --standalone --nproc_per_node N -m vinet_tpu_torch.cli.generate_result \
+      --data_parallel --path_indata DIR --save_path OUT ...
 """
 
 from __future__ import annotations
@@ -68,10 +77,25 @@ def build_parser():
     p.add_argument("--live_micro", type=int, default=16,
                    help="live microbatch (multiple of 8): smaller = lower latency, "
                         "larger = higher throughput")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split window batches over the processes of the torch.distributed "
+                        "world (exact; rank 0 writes the maps)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda unless asked for cpu")
     add_model_args(p)
     return p
+
+
+def data_parallel_mesh(args):
+    """(rank, the data-parallel mesh over every process) with
+    --data_parallel, else (0, None)."""
+    if not args.data_parallel:
+        return 0, None
+    from vinet_tpu_torch.parallel import create_mesh
+    from vinet_tpu_torch.utils.runtime import init_distributed
+
+    rank, _ = init_distributed(args.device)
+    return rank, create_mesh()
 
 
 def live_span(clip_size: int, micro: int) -> int:
@@ -80,8 +104,9 @@ def live_span(clip_size: int, micro: int) -> int:
     return max(160, ((96 + clip_size + 2 * micro + 7) // 8) * 8)
 
 
-def make_predictor(args):
-    """The predictor the flags ask for: live, streaming or sliding-window."""
+def make_predictor(args, mesh=None):
+    """The predictor the flags ask for: live, streaming or sliding-window;
+    the last two split their window batches over mesh's data axis."""
     from vinet_tpu_torch.cli.common import build_model
     from vinet_tpu_torch.inference import (LiveStreamingPredictor, SlidingWindowPredictor,
                                            StreamingPredictor)
@@ -93,8 +118,9 @@ def make_predictor(args):
             span=live_span(args.clip_size, args.live_micro), **common)
     if args.streaming:
         return StreamingPredictor(build_model(args), batch=args.window_batch,
-                                  chunk=args.chunk, **common)
-    return SlidingWindowPredictor(build_model(args), batch=args.window_batch, **common)
+                                  chunk=args.chunk, mesh=mesh, **common)
+    return SlidingWindowPredictor(build_model(args), batch=args.window_batch, mesh=mesh,
+                                  **common)
 
 
 def emit_maps(predictor, args, clip_u8: np.ndarray, out_size: tuple):
@@ -116,7 +142,8 @@ def run(args) -> int:
     from vinet_tpu_torch.cli.common import model_input_size, shard_video_list
     from vinet_tpu_torch.io.images import load_frame, save_map
 
-    predictor = make_predictor(args)
+    rank, mesh = data_parallel_mesh(args)
+    predictor = make_predictor(args, mesh)
 
     videos = sorted(d for d in os.listdir(args.path_indata)
                     if os.path.isdir(join(args.path_indata, d)))
@@ -142,9 +169,10 @@ def run(args) -> int:
 
             futures = []
             for frame_idx, smap in emit_maps(predictor, args, clip_u8, (orig_h, orig_w)):
-                out_path = join(args.save_path, dname, frames[frame_idx])
-                futures.append(pool.submit(save_map, smap, out_path))
                 n_maps += 1
+                if rank == 0:  # every rank has every map; one writes
+                    out_path = join(args.save_path, dname, frames[frame_idx])
+                    futures.append(pool.submit(save_map, smap, out_path))
             for f in futures:
                 f.result()
     print(f"wrote {n_maps} maps", flush=True)
@@ -154,8 +182,8 @@ def run(args) -> int:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.live and (args.streaming or args.pad_short):
-        parser.error("--live excludes --streaming and --pad_short")
+    if args.live and (args.streaming or args.pad_short or args.data_parallel):
+        parser.error("--live excludes --streaming, --pad_short and --data_parallel")
     if args.use_sound:
         parser.error("--use_sound True: AViNet runs in generate_result_audio_visual")
     return run(args)

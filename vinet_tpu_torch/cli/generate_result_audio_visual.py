@@ -19,7 +19,10 @@ card.
 --live_micro frames at a time to the live server
 (``AVLiveStreamingPredictor``), which emits each map with a constant lag.
 Both see real temporal neighbours at window edges where the reference
-zero-pads.
+zero-pads. --data_parallel splits each window batch of the parity and
+--streaming modes over the processes of a torch.distributed world
+(``utils/runtime.py::init_distributed``; one process without a launcher);
+rank 0 writes the maps.
 
 Usage:
   python -m vinet_tpu_torch.cli.generate_result_audio_visual \\
@@ -69,16 +72,18 @@ def build_parser(description: str = __doc__):
                    help="quantize maps to uint8 on the host in f64 (bit-exact reference "
                         "img_save rounding) instead of on the device in f32")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported yet (parallelism, ROADMAP.md queue 1)")
+                   help="split window batches over the processes of the torch.distributed "
+                        "world (exact; rank 0 writes the maps)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda unless asked for cpu")
     add_model_args(p)
     return p
 
 
-def make_predictor(args):
+def make_predictor(args, mesh=None):
     """The predictor the flags ask for: live, streaming or sliding-window,
-    AV with --use_sound True."""
+    AV with --use_sound True; the last two split their window batches over
+    mesh's data axis."""
     from vinet_tpu_torch.cli.common import build_model
     from vinet_tpu_torch.cli.generate_result import DTYPES, live_span
     from vinet_tpu_torch.inference import (AVLiveStreamingPredictor, AVStreamingPredictor,
@@ -92,8 +97,9 @@ def make_predictor(args):
                    span=live_span(args.clip_size, args.live_micro), **common)
     if args.streaming:
         cls = AVStreamingPredictor if args.use_sound else StreamingPredictor
-        return cls(build_model(args), batch=args.window_batch, **common)
-    return SlidingWindowPredictor(build_model(args), batch=args.window_batch, **common)
+        return cls(build_model(args), batch=args.window_batch, mesh=mesh, **common)
+    return SlidingWindowPredictor(build_model(args), batch=args.window_batch, mesh=mesh,
+                                  **common)
 
 
 def excerpt_fn(args, info):
@@ -136,12 +142,14 @@ def emit_maps(predictor, args, clip_u8, out_size, info, fps):
     yield from predictor.flush()
 
 
-def write_video_maps(pool, args, video, frame_dir, frames, out_name, maps_of) -> int:
+def write_video_maps(pool, args, video, frame_dir, frames, out_name, maps_of,
+                     write: bool = True) -> int:
     """Write one video's maps: its frames (file names under frame_dir, in
     order) decoded in pool at the model's size, maps_of(clip_u8, (h, w))
     yielding (frame_index, map) at the first frame's own size, each map
-    saved as <save_path>/<video>/<out_name(frame)>. A video shorter than
-    2 * clip_size - 1 frames is skipped. Returns the number of maps."""
+    saved as <save_path>/<video>/<out_name(frame)> (with write False only
+    counted). A video shorter than 2 * clip_size - 1 frames is skipped.
+    Returns the number of maps."""
     from vinet_tpu_torch.cli.common import model_input_size
     from vinet_tpu_torch.io.images import load_frame, save_map
 
@@ -153,8 +161,11 @@ def write_video_maps(pool, args, video, frame_dir, frames, out_name, maps_of) ->
     size = model_input_size(args)
     decoded = list(pool.map(lambda f: load_frame(join(frame_dir, f), size=size), frames))
     orig_w, orig_h = decoded[0][1]
+    maps = maps_of(np.stack([d[0] for d in decoded]), (orig_h, orig_w))
+    if not write:
+        return sum(1 for _ in maps)
     futures = [pool.submit(save_map, smap, join(args.save_path, video, out_name(frames[i])))
-               for i, smap in maps_of(np.stack([d[0] for d in decoded]), (orig_h, orig_w))]
+               for i, smap in maps]
     for f in futures:
         f.result()
     return len(futures)
@@ -165,7 +176,10 @@ def run(args) -> int:
     from vinet_tpu_torch.data.audio import build_audio_index
     from vinet_tpu_torch.data.datasets import read_fold_list, read_fps_json
 
-    predictor = make_predictor(args)
+    from vinet_tpu_torch.cli.generate_result import data_parallel_mesh
+
+    rank, mesh = data_parallel_mesh(args)
+    predictor = make_predictor(args, mesh)
     if args.fps_json:
         data = read_fps_json(args.fps_json)
     elif args.dataset == "DIEM":
@@ -194,16 +208,15 @@ def run(args) -> int:
                 pool, args, v, frame_dir, sorted(os.listdir(frame_dir)),
                 lambda f: os.path.splitext(f)[0] + ".jpg",
                 lambda clip, size, v=v: emit_maps(predictor, args, clip, size,
-                                                  audio_index.get(v), fps[v]))
+                                                  audio_index.get(v), fps[v]),
+                write=rank == 0)  # every rank has every map; one writes
     print(f"wrote {n_maps} maps", flush=True)
     return 0
 
 
 def check_args(parser, args) -> None:
-    if args.data_parallel:
-        parser.error("--data_parallel is not ported to vinet_tpu_torch yet")
-    if args.live and args.streaming:
-        parser.error("--live excludes --streaming")
+    if args.live and (args.streaming or args.data_parallel):
+        parser.error("--live excludes --streaming and --data_parallel")
 
 
 def main(argv=None):

@@ -11,9 +11,18 @@ group short of --streams repeats its last video, and shorter videos in a
 group are padded with their last frame; the maps of the padding are dropped.
 Maps have the window-edge semantics of --streaming/--live.
 
+--stream_parallel shards the streams over the processes of a
+torch.distributed world (``utils/runtime.py::init_distributed``: torchrun's
+variables or the VINET_* ones; one process without either): each process
+advances --streams / world streams, the maps are gathered once a decode,
+and rank 0 writes them. --streams must be a multiple of the world's size.
+
 Usage:
   python -m vinet_tpu_torch.cli.serve --path_indata DIR --save_path OUT \
       --file_weight ViNet_DHF1K.pt --streams 4 [--live_micro 32] [--device cuda]
+On N cards of one host:
+  torchrun --standalone --nproc_per_node N -m vinet_tpu_torch.cli.serve \
+      --stream_parallel --streams 4 ...
 """
 
 from __future__ import annotations
@@ -44,6 +53,10 @@ def build_parser():
     p.add_argument("--exact_quantize", action="store_true",
                    help="quantize maps to uint8 on the host in f64 instead of on the "
                         "device in f32")
+    p.add_argument("--stream_parallel", action="store_true",
+                   help="shard the streams over the processes of the torch.distributed "
+                        "world (no communication but the maps; --streams must be a "
+                        "multiple of the world's size)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda unless asked for cpu")
     add_model_args(p)
@@ -63,8 +76,19 @@ def run(args) -> int:
     from vinet_tpu_torch.inference import MultiLiveServer
     from vinet_tpu_torch.io.images import load_frame, save_map
 
+    rank, stream_mesh = 0, None
+    if args.stream_parallel:
+        from vinet_tpu_torch.parallel import create_mesh
+        from vinet_tpu_torch.utils.runtime import init_distributed
+
+        rank, _ = init_distributed(args.device)
+        stream_mesh = create_mesh()
+        if args.streams % stream_mesh.shape["data"]:
+            raise SystemExit(f"--streams {args.streams} is not a multiple of the "
+                             f"{stream_mesh.shape['data']}-way data axis")
     server = MultiLiveServer(
-        build_model(args), streams=args.streams, clip_size=args.clip_size,
+        build_model(args), streams=args.streams, stream_mesh=stream_mesh,
+        clip_size=args.clip_size,
         batch=min(32, args.live_micro), micro=args.live_micro,
         span=live_span(args.clip_size, args.live_micro), dtype=DTYPES[args.dtype],
         device=args.device)
@@ -112,9 +136,10 @@ def run(args) -> int:
                     for s, idx, smap in got:
                         if s >= len(chunk) or idx >= lengths[s]:
                             continue  # a padding stream's or a padding frame's map
-                        out = join(args.save_path, names[s], meta[names[s]][1][idx])
-                        futures.append(pool.submit(save_map, smap, out))
                         n_maps += 1
+                        if rank == 0:  # every rank has every stream's maps; one writes
+                            out = join(args.save_path, names[s], meta[names[s]][1][idx])
+                            futures.append(pool.submit(save_map, smap, out))
 
                 for flo in range(0, t_max, server.micro):
                     sink(server.feed(clips[:, flo: flo + server.micro]))

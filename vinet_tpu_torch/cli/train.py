@@ -21,19 +21,36 @@ reference-named state_dict at --model_val_path (``io/export.py``), which
 fine-tunes visual ViNet through the streaming forward instead
 (``training/streaming_ft.py``).
 
---multihost and --model_axis > 1 are not ported yet and stop at startup, as
-does --streaming_ft with --use_sound True (the JAX package's too).
+Parallelism (``parallel/``) follows the JAX CLI, one process a card. The
+CLI joins its torch.distributed world (``utils/runtime.py::init_distributed``:
+the VINET_* variables or torchrun's; one process without either) and builds
+a ("data", "model") mesh. Without --multihost, --batch_size is the global
+batch: every rank walks the same loader and each data rank runs its rows;
+the data axis is gcd(batch_size, world // model_axis), and ranks left out of
+the mesh stop at startup. With --multihost, --batch_size is per process,
+each rank's loader takes its shard of the samples and the global batch is
+the ranks' batches in rank order. BatchNorm takes the global batch's
+statistics, --model_axis N shards the parameters and their Adam state N
+ways (``training/trainer.py``), and the step equals one process's on the
+global batch. Validation is replicated; rank 0 alone writes the checkpoint
+and the best model. --multihost with --model_axis > 1 stops at startup, as
+in the JAX package, as does --streaming_ft with --use_sound True;
+--streaming_ft ignores --multihost and runs in each process alone.
 
 Usage (DHF1K; the six AV sets: --dataset SoundDataset --split 1
 --use_sound True --train_path_data STAVIS_ROOT):
   python -m vinet_tpu_torch.cli.train --train_path_data D/annotation \
       --val_path_data D/val --no_epochs 40 --batch_size 8 --bf16 \
       [--file_weight S3D_kinetics400.pt] [--checkpoint_dir ck --resume]
+On N cards of one host:
+  torchrun --standalone --nproc_per_node N -m vinet_tpu_torch.cli.train \
+      --multihost --batch_size 8 ...
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
@@ -82,7 +99,8 @@ def build_parser():
     p.add_argument("--load_weight", type=str, default=None,
                    help="full-model weights to start from (.pt or .npz)")
     p.add_argument("--max_steps_per_epoch", type=int, default=0, help="0 = full epoch")
-    p.add_argument("--model_axis", type=int, default=1, help="not ported yet: 1 only")
+    p.add_argument("--model_axis", type=int, default=1,
+                   help="mesh model-parallel size: parameters and Adam state sharded N ways")
     p.add_argument("--bn_recal", type=int, default=0,
                    help="N > 0: before each validation, replace the BatchNorm running "
                         "statistics with the mean batch statistics of the first N train "
@@ -90,7 +108,9 @@ def build_parser():
                         "near their init); 0 = reference behaviour")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 convolutions; f32 master weights, Adam state and BN statistics")
-    p.add_argument("--multihost", action="store_true", help="not ported yet")
+    p.add_argument("--multihost", action="store_true",
+                   help="--batch_size per process and the data loaders sharded per process "
+                        "(the world comes from torchrun or the VINET_* variables)")
     p.add_argument("--streaming_ft", action="store_true",
                    help="streaming-consistent fine-tune through the --streaming forward on "
                         "contiguous chunks, BatchNorm statistics frozen; needs --load_weight "
@@ -106,11 +126,10 @@ def build_parser():
 
 
 def check_supported(args) -> None:
-    """Stop at startup on what the port does not do yet."""
-    if args.multihost:
-        raise SystemExit("--multihost is not ported to vinet_tpu_torch yet")
-    if args.model_axis != 1:
-        raise SystemExit("--model_axis > 1 is not ported to vinet_tpu_torch yet")
+    """Stop at startup on what the CLI does not do."""
+    if args.multihost and args.model_axis > 1 and not args.streaming_ft:
+        raise SystemExit("--multihost with --model_axis>1 is unsupported; "
+                         "use --model_axis 1 under --multihost")
     if args.batch_size % args.grad_accum:
         raise SystemExit("--batch_size must be divisible by --grad_accum")
     if args.streaming_ft:
@@ -284,49 +303,91 @@ def validate(model, val_loader, loss_cfg, device) -> tuple:
     return vl.avg, vc.avg, vs.avg
 
 
+def training_mesh(args, world: int):
+    """The mesh of the JAX CLI (its cli/train.py:316-353) over this world:
+    with --multihost every rank on the data axis; otherwise a data axis of
+    gcd(batch_size, world // model_axis), so that every data rank gets as
+    many rows, over the first data * model_axis ranks."""
+    from vinet_tpu_torch.parallel import create_mesh
+
+    data = (world if args.multihost
+            else math.gcd(args.batch_size, world // args.model_axis))
+    n = min(data * args.model_axis, world)
+    try:
+        mesh = create_mesh(n, model=args.model_axis)
+    except ValueError as e:
+        raise SystemExit(f"--model_axis {args.model_axis}: {e}")
+    if n < world:
+        print(f"using {n}/{world} devices (batch_size {args.batch_size} limits the data axis)",
+              flush=True)
+    return mesh
+
+
 def run(args) -> int:
     from vinet_tpu_torch.data.pipeline import Loader
     from vinet_tpu_torch.device import resolve_device
     from vinet_tpu_torch.io.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from vinet_tpu_torch.parallel import gather_batch
     from vinet_tpu_torch.training.trainer import (AverageMeter, init_train_state,
                                                   make_bn_stats_fn, make_train_step,
                                                   recalibrate_bn, step_decay)
+    from vinet_tpu_torch.utils.runtime import init_distributed
 
     check_supported(args)
     device = resolve_device(args.device)
     if args.streaming_ft:
         return run_streaming_ft(args, device)
+    rank, world = init_distributed(args.device)
+    mesh = training_mesh(args, world)
+    if mesh.coords is None:
+        print(f"rank {rank} is outside the {mesh.size}-rank mesh: nothing to do", flush=True)
+        return 0
 
     model = build_train_model(args, device)
     loss_cfg = loss_config(args)
     train_ds, val_ds = make_datasets(args)
     train_loader = Loader(train_ds, batch_size=args.batch_size, shuffle=True,
-                          num_workers=args.no_workers, seed=0)
+                          num_workers=args.no_workers, seed=0,
+                          shard=(rank, world) if args.multihost else (0, 1))
     val_loader = (Loader(val_ds, batch_size=1, shuffle=False, num_workers=args.no_workers,
                          drop_last=False) if val_ds else None)
+    steps_per_epoch = len(train_loader)
+    if args.multihost and world > 1:  # every rank takes as many steps as the shortest shard
+        n = torch.tensor([steps_per_epoch], device=device)
+        torch.distributed.all_reduce(n, op=torch.distributed.ReduceOp.MIN)
+        steps_per_epoch = int(n)
+    if args.max_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
     # the reference's --lr_sched names an undefined scheduler; here, as in the
     # JAX package, 0.1x every step_size epochs' worth of optimizer steps
     schedule = (step_decay(args.lr, args.step_size * max(1, len(train_loader)))
                 if args.lr_sched else None)
-    ts = init_train_state(model, args.lr, lr_schedule=schedule)
+    ts = init_train_state(model, args.lr, lr_schedule=schedule, mesh=mesh)
     if args.resume and args.checkpoint_dir and latest_step(args.checkpoint_dir) is not None:
         restore_checkpoint(args.checkpoint_dir, ts)
         print(f"resumed from step {ts.step}", flush=True)
 
     step_fn = make_train_step(loss_cfg, compute_dtype=torch.bfloat16 if args.bf16 else None,
-                              grad_accum=args.grad_accum)
-    stats_fn = make_bn_stats_fn(model) if args.bn_recal else None
+                              grad_accum=args.grad_accum, mesh=mesh)
+    stats_fn = make_bn_stats_fn(model, mesh) if args.bn_recal else None
+
+    def global_batch(host: dict) -> dict:
+        """A train batch on the device as the global batch: under --multihost
+        the ranks' batches in rank order (JAX's _globalize)."""
+        batch = to_device(host, device)
+        return {k: gather_batch(v, mesh) for k, v in batch.items()} if args.multihost else batch
+
     calib_host = []  # host batches kept for BN recalibration
     best_loss = float("inf")
     for epoch in range(args.no_epochs):
         tic = time.time()
         total, cur = AverageMeter(), AverageMeter()
         for idx, batch in enumerate(train_loader):
-            if args.max_steps_per_epoch and idx >= args.max_steps_per_epoch:
+            if idx >= steps_per_epoch:
                 break
             if len(calib_host) < args.bn_recal:
                 calib_host.append({k: v for k, v in batch.items() if k in ("clip", "audio")})
-            ts, metrics = step_fn(ts, to_device(batch, device))
+            ts, metrics = step_fn(ts, global_batch(batch))
             loss = float(metrics["loss"])
             total.update(loss)
             cur.update(loss)
@@ -336,19 +397,20 @@ def run(args) -> int:
                 cur.reset()
         print("[%2d, train] avg_loss : %.5f" % (epoch, total.avg), flush=True)
 
-        if calib_host:
-            recalibrate_bn(model, (to_device(b, device) for b in calib_host), stats_fn=stats_fn)
-        if val_loader is not None:
+        if calib_host:  # global batches, as the train steps'
+            recalibrate_bn(model, (global_batch(b) for b in calib_host), stats_fn=stats_fn)
+        if val_loader is not None:  # replicated: every rank walks the same loader
             val_loss, val_cc, val_sim = validate(model, val_loader, loss_cfg, device)
             print("[%2d, val] avg_loss : %.5f cc_loss : %.5f sim_loss : %.5f, time : %3f"
                   % (epoch, val_loss, val_cc, val_sim, (time.time() - tic) / 60), flush=True)
         else:
             val_loss = total.avg
-        if args.checkpoint_dir:
-            save_checkpoint(args.checkpoint_dir, ts)
+        if args.checkpoint_dir:  # every rank gathers the shards, rank 0 writes
+            save_checkpoint(args.checkpoint_dir, ts, write=rank == 0)
         if val_loss <= best_loss:
             best_loss = val_loss
-            save_best(args, model, epoch)
+            if rank == 0:
+                save_best(args, model, epoch)
     return 0
 
 

@@ -14,6 +14,11 @@ and optionally quantise to uint8. The host only decodes and encodes PNGs.
 For AViNet, ``audio_fn(start)`` gives each window its (L, 1) excerpt: on the
 device it is cast to the compute dtype and, for a warm-up window, reversed
 along the samples next to its clip; padded batch rows get zero audio.
+
+With a mesh (``parallel/mesh.py``) each window batch's rows are split over
+the data group: every rank runs its rows through the model and the post
+ops, and the rows are gathered, so ``predict_video`` yields every frame's
+map on every rank, as the JAX package's data-parallel predictor does.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from vinet_tpu_torch.data.pipeline import device_preprocess
 from vinet_tpu_torch.device import resolve_device
 from vinet_tpu_torch.models.inference import cast_floating, fold_batchnorms
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
+from vinet_tpu_torch.parallel.mesh import batch_slice, gather_batch
 
 FETCH_EVERY = 4  # window batches kept on the device per device->host copy
 BLUR_KSIZE = 11  # the reference's cv2.GaussianBlur(map, (11, 11), 0)
@@ -64,18 +70,21 @@ def window_plan(n_frames: int, clip_size: int, *, pad_short: bool = False) -> li
 
 class SlidingWindowPredictor:
     def __init__(self, model: torch.nn.Module, *, clip_size: int = 32, batch: int = 16,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda", mesh=None):
         """model: a ViNet or AViNet with its weights loaded (or any module
         mapping (B, T, H, W, 3) clips [and (B, L, 1) audio] to (B, H, W)
         maps). The predictor prepares a
         copy of it (BatchNorms folded, cast to dtype, moved to device, eval
         mode) and leaves the caller's model as it is, as the JAX predictors
-        leave (params, state)."""
+        leave (params, state). mesh: window batches are split over its data
+        axis (the module's docstring); batch must be divisible by it."""
         self.device = resolve_device(device)
         self.model = prepared_copy(model, dtype, self.device)
         self.clip_size = clip_size
         self.batch = batch
         self.dtype = dtype
+        self.mesh = mesh
+        self.rows = batch_slice(mesh, batch)  # this rank's rows of a window batch
 
     @torch.inference_mode()
     def run_batch(self, frames: torch.Tensor, idx: torch.Tensor, out_hw: tuple,
@@ -143,8 +152,11 @@ class SlidingWindowPredictor:
                 audio = torch.from_numpy(audio).to(self.device)
                 flip = torch.tensor([task.flipped for task in chunk]
                                     + [False] * (self.batch - len(chunk)), device=self.device)
-            pending.append((chunk, self.run_batch(frames, idx_d, out_hw, quantize_u8,
-                                                  audio, flip)))
+            r = self.rows
+            maps = self.run_batch(frames, idx_d[r], out_hw, quantize_u8,
+                                  None if audio is None else audio[r],
+                                  None if flip is None else flip[r])
+            pending.append((chunk, gather_batch(maps, self.mesh)))
             if len(pending) >= FETCH_EVERY:
                 yield from flush()
         if pending:

@@ -256,10 +256,16 @@ class LiveStreamingPredictor(StreamingPredictor):
         maps = self._decode(tl, dense, self._starts(starts), audio)
         maps = maps.reshape(self.streams, self.batch, *maps.shape[1:])[:, : len(frames)]
         out = self._post(maps.reshape(-1, *maps.shape[2:]), self._out_hw, self._quantize_u8)
-        out = out.reshape(self.streams, len(frames), *out.shape[1:]).cpu().numpy()
+        out = self._all_streams(out.reshape(self.streams, len(frames), *out.shape[1:]))
+        out = out.cpu().numpy()
         for j, f in enumerate(frames):
-            for s in range(self.streams):
+            for s in range(out.shape[0]):
                 yield s, f, out[s, j]
+
+    def _all_streams(self, maps: torch.Tensor) -> torch.Tensor:
+        """(streams, frames, h, w) maps of this process's streams -> every
+        stream's (a stream-parallel server gathers them)."""
+        return maps
 
     def _decode_live(self, frames_emittable: int):
         t = self.clip_size

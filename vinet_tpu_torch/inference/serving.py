@@ -23,6 +23,12 @@ frame and the padding's maps dropped.
 (``inference/live.py::AVLiveStreamingPredictor``'s) and folds the streams'
 windows and their excerpts into the decode batch stream-major, as the
 frames are.
+
+``stream_mesh`` shards the streams over a mesh's data group
+(``parallel/mesh.py``): rank r holds the device state of streams [r·S/d,
+(r+1)·S/d) and advances only those; ``feed`` still takes every stream's
+frames and yields every stream's maps, gathered from the ranks once per
+decode. No other communication: the streams share nothing.
 """
 
 from __future__ import annotations
@@ -30,16 +36,28 @@ from __future__ import annotations
 import numpy as np
 
 from vinet_tpu_torch.inference.live import AVLiveStreamingPredictor, LiveStreamingPredictor
+from vinet_tpu_torch.parallel.mesh import batch_slice, gather_batch
 
 
 class MultiLiveServer(LiveStreamingPredictor):
     """S synchronized live streams through one advance and one decode."""
 
-    def __init__(self, model, *, streams: int, **kw):
+    def __init__(self, model, *, streams: int, stream_mesh=None, **kw):
+        """stream_mesh: shard the streams over its data axis (the module's
+        docstring); streams must be divisible by it."""
         if streams < 1:
             raise ValueError(f"streams must be >= 1, got {streams}")
-        self.streams = int(streams)
+        if stream_mesh is not None and kw.get("mesh") is not None:
+            raise ValueError("stream_mesh shards the stream axis; window-batch mesh "
+                             "sharding (mesh=) cannot be combined with it")
+        self.total_streams = int(streams)
+        self.stream_mesh = stream_mesh
+        self.stream_rows = batch_slice(stream_mesh, self.total_streams)  # this rank's streams
+        self.streams = self.stream_rows.stop - self.stream_rows.start
         super().__init__(model, **kw)
+
+    def _all_streams(self, maps):
+        return gather_batch(maps, self.stream_mesh)
 
     def feed(self, frames_u8: np.ndarray):
         """Feed (S, k, H, W, 3) uint8 frames, the same k for every stream;
@@ -47,10 +65,10 @@ class MultiLiveServer(LiveStreamingPredictor):
         frames_u8 = np.asarray(frames_u8)
         if frames_u8.ndim == 4:  # one frame per stream
             frames_u8 = frames_u8[:, None]
-        if frames_u8.ndim != 5 or frames_u8.shape[0] != self.streams:
-            raise ValueError(f"frames must be ({self.streams}, k, H, W, 3), "
+        if frames_u8.ndim != 5 or frames_u8.shape[0] != self.total_streams:
+            raise ValueError(f"frames must be ({self.total_streams}, k, H, W, 3), "
                              f"got {frames_u8.shape}")
-        yield from self._feed(frames_u8)
+        yield from self._feed(frames_u8[self.stream_rows])
 
     def flush(self):
         """Drain: each stream repeats its own last frame."""
@@ -70,5 +88,9 @@ class AVMultiLiveServer(AVLiveStreamingPredictor, MultiLiveServer):
         """Feed (S, k, H, W, 3) uint8 frames and, per stream, the 1-D chunk
         of samples that arrived with them (None: no audio this time);
         yields every (stream, frame, map) that became final."""
+        if audio is not None:
+            if len(audio) != self.total_streams:
+                raise ValueError(f"{len(audio)} audio chunks for {self.total_streams} streams")
+            audio = list(audio)[self.stream_rows]
         self._take_audio(audio)
         yield from MultiLiveServer.feed(self, frames_u8)

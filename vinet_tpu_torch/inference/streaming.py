@@ -27,12 +27,18 @@ enters per window: SoundNet on the window's excerpt and the fusion into the
 window's y0 (``AViNet.fuse``), so conv1 runs windowed on the fused y0 and the
 dense front has no conv1 series. y1, y2 and y3 carry no audio, so their
 dense series serve the AV decode as they are.
+
+With a mesh the window batches' rows are split over the data group, as in
+``inference/engine.py``; the timelines are computed on every rank.
+``streaming_pyramid_tsharded`` splits a long chunk's time axis over the
+data group instead, with a halo exchange between neighbouring ranks.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vinet_tpu_torch.data.pipeline import device_preprocess
@@ -42,6 +48,8 @@ from vinet_tpu_torch.models.decoder import DECODER_PLANS
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
 from vinet_tpu_torch.ops.upsample import upsample2x_hw
+from vinet_tpu_torch.parallel.collectives import all_gather
+from vinet_tpu_torch.parallel.mesh import batch_slice, gather_batch
 
 # dense-mode temporal receptive radius of the S3D backbone in input frames,
 # rounded up to the /8 phase alignment (vinet_tpu/inference/streaming.py)
@@ -99,6 +107,55 @@ def streaming_pyramid(backbone, x: torch.Tensor):
     y = _split_time(MAXT4_DENSE(y1), s)  # (8S, 832, N/8, ...)
     y0 = backbone.base4(backbone.maxp4(y))
     return y0, y1, y2, y3
+
+
+def streaming_pyramid_tsharded(backbone, x: torch.Tensor, mesh, *,
+                               halo: int = TEMPORAL_HALO):
+    """The timeline pyramid of a long chunk with its time axis split over the
+    mesh's data group, ``vinet_tpu/inference/streaming.py::
+    streaming_pyramid_tsharded``: x (1, 3, N, H, W) normalised, the whole
+    chunk on every rank -> the four phase timelines of ``streaming_pyramid``,
+    the whole chunk's on every rank.
+
+    Rank i of d runs frames [i·N/d, (i+1)·N/d): it sends its first and last
+    halo frames to its neighbours and takes theirs (the JAX package's two
+    ppermutes), runs ``streaming_pyramid`` on [left halo | segment | right
+    halo] and keeps its segment's positions; the ranks' positions are then
+    gathered along time. The first and last rank take zero frames for the
+    halo beyond the chunk, so within each level's receptive radius of the
+    chunk's two ends the timelines differ from ``streaming_pyramid``'s,
+    which zero-pads every temporal conv at the chunk edge (the JAX
+    package's documented semantics: y3 and y2 at their outermost 1-3
+    positions); everywhere else they are equal."""
+    group, d, i = mesh.groups["data"], mesh.shape["data"], mesh.coords[0]
+    n = x.shape[2]
+    seg = n // d
+    if n % d or seg % 8:
+        raise ValueError(f"a chunk of {n} frames does not split into {d} segments of a "
+                         "multiple of 8 frames")
+    if seg < halo:
+        raise ValueError(f"per-device segment {seg} shorter than the halo {halo}: temporal "
+                         f"sharding needs chunks >= {halo * d} frames on {d} devices (it is a "
+                         "long-context extension)")
+    if halo % 8:
+        raise ValueError(f"halo {halo} is not a multiple of 8")
+    mine = x[:, :, i * seg: (i + 1) * seg].contiguous()
+    left = torch.zeros_like(mine[:, :, :halo])
+    right = torch.zeros_like(mine[:, :, :halo])
+    ops = []
+    if i > 0:
+        peer = dist.get_global_rank(group, i - 1)
+        ops += [dist.P2POp(dist.isend, mine[:, :, :halo].contiguous(), peer, group),
+                dist.P2POp(dist.irecv, left, peer, group)]
+    if i < d - 1:
+        peer = dist.get_global_rank(group, i + 1)
+        ops += [dist.P2POp(dist.isend, mine[:, :, -halo:].contiguous(), peer, group),
+                dist.P2POp(dist.irecv, right, peer, group)]
+    for req in dist.batch_isend_irecv(ops) if ops else []:
+        req.wait()
+    pyr = streaming_pyramid(backbone, torch.cat([left, mine, right], dim=2))
+    return tuple(all_gather(y[:, :, halo // f: (halo + seg) // f].contiguous(), group, dim=2)
+                 for y, f in zip(pyr, (8, 4, 2, 2)))
 
 
 def _phases(starts: torch.Tensor):
@@ -225,17 +282,20 @@ class StreamingPredictor:
     dense_conv1 = True  # the dense front has conv1's series (not for AViNet)
 
     def __init__(self, model, *, clip_size: int = 32, batch: int = 16, chunk: int = 128,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda", mesh=None):
         """model: a ViNet (AViNet for AVStreamingPredictor) with its weights
         loaded. The predictor prepares a copy of it (BatchNorms folded, cast
         to dtype, moved to device, eval mode) and leaves the caller's model
-        as it is."""
+        as it is. mesh: the decode's window batches are split over its data
+        axis; batch must be divisible by it."""
         if chunk % 8 or chunk < 2 * clip_size:
             raise ValueError(f"chunk must be a multiple of 8 and >= {2 * clip_size}, got {chunk}")
         self.device = resolve_device(device)
         self.model = prepared_copy(model, dtype, self.device)
         self.clip_size = clip_size
         self.batch = batch
+        self.mesh = mesh
+        self.rows = batch_slice(mesh, batch)  # this rank's rows of a window batch
         self.chunk = chunk
         self.dtype = dtype
         self.v2 = clip_size == 32 and self.visual.decoder.plan == DECODER_PLANS[(3, 32)]
@@ -363,10 +423,12 @@ class StreamingPredictor:
                     # normal one t - 1 frames before it
                     exc = [audio_fn(max(0, f if flipped else f - t + 1)) for f, _ in group]
                     audio = self._audio([[e[::-1] for e in exc] if flipped else exc])
-                maps = self._decode(tl, dense, self._starts([s for _, s in group]), audio)
+                r = self.rows
+                maps = self._decode(tl, dense, self._starts([s for _, s in group])[r],
+                                    None if audio is None else audio[r])
+                maps = gather_batch(self._post(maps, out_hw, quantize_u8), self.mesh)
                 done.update(f for f, _ in group)
-                pending.append(([f for f, _ in group],
-                                self._post(maps[: len(group)], out_hw, quantize_u8)))
+                pending.append(([f for f, _ in group], maps[: len(group)]))
                 if len(pending) >= FETCH_EVERY:
                     yield from flush()
         if pending:

@@ -22,7 +22,10 @@ self- and cross-attention and the feed-forward output, as
 handed to ``forward`` (one on the activations' device), never from the
 global RNG, and only in training mode: without a generator, or in eval
 mode, nothing is drawn and nothing is dropped, as a JAX train state without
-``"rng"`` trains without dropout.
+``"rng"`` trains without dropout. A data-parallel rank holds a
+``RowsGenerator``: it draws each mask at the shape of the global batch and
+keeps its own rows (the batch is dim 0 of every dropped tensor), so W
+ranks drop what one process does.
 
 ``TransformerEncoder`` is the reference's ``Transformer`` wrapper: the
 sin/cos table as the buffer ``pos_encoder.pe`` (max_len, 1, feat), added
@@ -34,6 +37,7 @@ decoder under the wrapper's names.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -61,13 +65,28 @@ def no_autocast(device: torch.device):
     return torch.autocast(device.type, enabled=False)
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class RowsGenerator:
+    """A data-parallel rank's dropout generator: masks are drawn for the
+    global batch of ``batch`` rows and the rank keeps ``rows`` of them."""
+    generator: torch.Generator
+    batch: int
+    rows: slice
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator | RowsGenerator | None) -> torch.Tensor:
     """JAX's ``_dropout``: each element kept with probability 1 - p and then
     scaled by 1 / (1 - p), else 0; the mask is drawn from generator. x as
     it is without a generator or with p 0."""
     if generator is None or p <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    if isinstance(generator, RowsGenerator):
+        draw = torch.rand((generator.batch, *x.shape[1:]), generator=generator.generator,
+                          device=x.device)[generator.rows]
+    else:
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = draw < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -1,3 +1,3 @@
-from vinet_tpu_torch.utils.runtime import enable_profiling, num_params
+from vinet_tpu_torch.utils.runtime import enable_profiling, init_distributed, num_params
 
-__all__ = ["enable_profiling", "num_params"]
+__all__ = ["enable_profiling", "init_distributed", "num_params"]
