@@ -128,11 +128,24 @@ fails. Phases, each printing one JSON line:
    (NCCL refuses a duplicate GPU): multi-rank exactness is the CPU tests'
    (``tests/test_torch_parallel*.py``, gloo).
 
-Phases 6-15 set the launch counts to 0 before their path, read them after,
+16. tased: TASEDv2 (``models/tased.py``) at full width on (B, 32, 224, 384,
+   3), B 1 and 8, in bf16 autocast over f32 weights (the fixture's S3D, the
+   decoder seeded from numpy, its running statistics from one seeded
+   batch): the maps' shape and range, bf16 against f32, card against CPU
+   at 32 x 32, forward ms, clips/s and peak memory, a profile of one B 8
+   forward and each ConvTranspose3d alone (its time by CUDA events and
+   cuDNN's kernels beside its bound). TASEDv2 launches no kernel of the
+   repo (its transposed convolutions are XLA convolutions in the JAX
+   package, not Pallas kernels), and the phase requires every count to stay
+   0. Phase 11's train CLI also writes its best model as the JAX package's
+   ``.npz`` trees (``--model_val_path best.npz``), which ``load_weights``
+   reads back equal to the checkpointed model.
+
+Phases 6-16 set the launch counts to 0 before their path, read them after,
 and fail unless the fused head launched (phases 11, 14 and 15: in the eval
-steps and the CLI's validation, and never in a train step). Then one line
-lists every kernel with its numbers (the head's launches on every path), and
-the last line is ``{"ok": true, "device": {...}}``.
+steps and the CLI's validation, and never in a train step; phase 16: never).
+Then one line lists every kernel with its numbers (the head's launches on
+every path), and the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1279,7 +1292,8 @@ def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
     The train CLI's checkpoint directory is copied to keep_checkpoint."""
     import numpy as np
 
-    from vinet_tpu_torch.io.checkpoint import latest_step
+    from vinet_tpu_torch.io.checkpoint import latest_step, restore_raw
+    from vinet_tpu_torch.io.weights import load_weights
     from vinet_tpu_torch.models import ViNet
     from vinet_tpu_torch.training import LossConfig, loss_func
     from vinet_tpu_torch.training.trainer import (init_train_state, make_eval_step,
@@ -1361,6 +1375,7 @@ def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "val")
         ck, best, ft = (os.path.join(tmp, n) for n in ("ck", "best.pt", "ft.pt"))
+        ck_npz, best_npz = os.path.join(tmp, "ck_npz"), os.path.join(tmp, "best.npz")
         _write_videos(train_dir, 24, 64, (112, 192), maps=True)
         _write_videos(val_dir, 2, 64, (180, 320), maps=True)
         common = ["--train_path_data", train_dir, "--val_path_data", val_dir, "--bf16",
@@ -1373,7 +1388,9 @@ def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
                             "--resume"]),
                 ("streaming_ft", ["--streaming_ft", "--ft_chunk", "64", "--ft_windows", "16",
                                   "--max_steps_per_epoch", "2", "--load_weight", best,
-                                  "--model_val_path", ft])):
+                                  "--model_val_path", ft]),
+                ("npz", ["--batch_size", "8", "--max_steps_per_epoch", "1", "--load_weight",
+                         FIXTURE, "--checkpoint_dir", ck_npz, "--model_val_path", best_npz])):
             torch.cuda.synchronize()
             _reset_launch_counts()
             t0 = time.perf_counter()
@@ -1386,6 +1403,16 @@ def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
                             if "running" in k)
         ft_weights_changed = sum(not torch.equal(before[k], after[k]) for k in before
                                  if k.endswith("weight"))
+        # --model_val_path x.npz: the JAX package's trees, read back by
+        # load_weights strictly, equal to the epoch's checkpointed model
+        npz = ViNet(3, 32)
+        npz.load_state_dict(load_weights(best_npz), strict=True)
+        want = restore_raw(ck_npz)["model"]
+        clis["npz"]["tensors_differing"] = sum(
+            not torch.equal(v, want[k]) for k, v in npz.state_dict().items()
+            if not k.endswith("num_batches_tracked"))
+        with np.load(best_npz) as f:
+            clis["npz"]["members"] = len(f.files)
 
     rec = {"phase": "train", "card": card,
            "config": "ViNet(3,32) fixture weights, BN unfolded, bf16 convs, f32 masters, "
@@ -1426,6 +1453,8 @@ def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
         _require_head(clis[name]["launches"], f"cli.train {name}'s validation")
     check(ft_bn_changed == 0, f"streaming fine-tuning changed {ft_bn_changed} BN statistics")
     check(ft_weights_changed > 0, "streaming fine-tuning changed no weight")
+    check(clis["npz"]["members"] > 300 and clis["npz"]["tensors_differing"] == 0,
+          f"train --model_val_path best.npz: {clis['npz']}")
     return rec
 
 
@@ -2231,6 +2260,183 @@ def phase_av_train(torch, card: str) -> dict:
     return paths
 
 
+# phase tased: TASEDv2 in bf16 against f32 is held to the model phase's
+# bounds (BF16_MAX_TOL, BF16_MEAN_TOL: some 70 convolutions, as ViNet's),
+# card f32 against CPU f32 to CPU_TOL
+TASED_BATCHES = (1, 8)
+
+
+def _tased_model(torch, seed: int = 0):
+    """TASEDv2 on the card: its S3D stages from the fixture (the trained S3D
+    of ``artifacts/streamft_fixture.npz``, as the reference starts TASED from
+    a trained S3D), its decoder from numpy seed: conv and ConvTranspose3d
+    weights N(0, 1/fan_in), BatchNorm scale 1 + N(0, 0.01) and bias N(0,
+    0.01), and the decoder's running statistics those of one seeded batch
+    of 2 clips (momentum 1). A decoder of random weights over a random
+    backbone amplifies bf16 rounding past any bound (on the CPU at 64 x 96
+    the maps differ by up to 0.58); over the trained backbone it stays
+    within ViNet's bounds (0.010-0.033 there)."""
+    import numpy as np
+
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+    from vinet_tpu_torch.io.weights import TASED_TRANSPOSED, load_weights
+    from vinet_tpu_torch.models import TASEDv2
+    from vinet_tpu_torch.ops.norm import override_momentum
+
+    model = TASEDv2()
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            holder, leaf = name.rsplit(".", 1)
+            if not name.startswith("convtsp") or leaf == "num_batches_tracked":
+                continue
+            if t.dim() >= 2:  # a conv's (O, I, k...) or a ConvTranspose3d's (I, O, k...)
+                fan_in = t.numel() // t.shape[1 if holder in TASED_TRANSPOSED else 0]
+                v = rng.standard_normal(t.shape) / np.sqrt(fan_in)
+            else:
+                v = rng.standard_normal(t.shape) * 0.1 + (1.0 if leaf == "weight" else 0.0)
+            t.copy_(torch.from_numpy(v.astype(np.float32)))
+    backbone = {k[len("backbone."):]: v for k, v in load_weights(FIXTURE).items()
+                if k.startswith("backbone.")}
+    missing = model.load_state_dict(backbone, strict=False).missing_keys
+    check(all(k.startswith("convtsp") for k in missing), f"TASEDv2 backbone: {missing[:3]}")
+    model = model.cuda().train()
+    for name in ("base1", "base2", "base3", "base4"):
+        getattr(model, name).eval()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = device_preprocess(torch.randint(0, 256, (2, 32, 224, 384, 3), generator=g,
+                                        device="cuda", dtype=torch.uint8))
+    with torch.no_grad(), override_momentum(model, 1.0):
+        model(x)
+    return model.eval()
+
+
+def _transposed_convs(torch, model, x) -> dict:
+    """Each ConvTranspose3d of model alone on the input that one forward of x
+    (bf16 autocast) hands it: its input and weight shapes, FLOP count, its
+    device ms by CUDA events (``ms``), the kernels cuDNN runs by
+    torch.profiler, and its bound."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    inputs = {}
+    hooks = [m.register_forward_hook(lambda m, i, o, n=n: inputs.__setitem__(n, i[0]))
+             for n, m in model.named_modules() if isinstance(m, torch.nn.ConvTranspose3d)]
+    try:
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {}
+    modules = dict(model.named_modules())
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        for name, xi in inputs.items():
+            ct = modules[name]
+            ct(xi)  # warm: cuDNN picks its algorithm
+            with FlopCounterMode(display=False) as flops:
+                y = ct(xi)
+            prof = profile_device(torch, lambda: ct(xi))
+            moved = xi.numel() * xi.element_size() + ct.weight.numel() * 2 + \
+                y.numel() * y.element_size()
+            bound_ms, bound_by = bound(moved, flops.get_total_flops(), torch.bfloat16)
+            out[name] = {"input": list(xi.shape), "weight": list(ct.weight.shape),
+                         "output": list(y.shape), "flop": flops.get_total_flops(),
+                         "ms": cuda_ms(lambda: ct(xi), 20),
+                         "profiled_device_ms": prof["device_ms"], "bound_ms": bound_ms,
+                         "bound_by": bound_by, "kernels": prof["top_kernels"][:4]}
+    return out
+
+
+def phase_tased(torch, card: str) -> dict:
+    """Phase 16: TASEDv2 at full width on (B, 32, 224, 384, 3), B 1 and 8, in
+    bf16 autocast over f32 weights (``_tased_model``: the fixture's S3D, a
+    decoder seeded from numpy): the maps' shape and range, bf16 against f32
+    at B 1, card f32 against CPU f32 at 32 x 32, forward ms, clips/s and
+    peak memory at each B, the profile of one B 8 forward and each
+    ConvTranspose3d alone (cuDNN's kernels, their time and bound). It
+    launches no kernel of the repo. Returns its launch counts."""
+    import numpy as np
+
+    from vinet_tpu_torch.data.pipeline import device_preprocess
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(16)
+
+    def clips(b, h=224, w=384):
+        return device_preprocess(torch.randint(0, 256, (b, 32, h, w, 3), generator=g,
+                                               device="cuda", dtype=torch.uint8))
+
+    model = _tased_model(torch)
+    bf16 = torch.autocast("cuda", dtype=torch.bfloat16)
+    rec = {"phase": "tased", "card": card,
+           "config": "TASEDv2: fixture S3D, decoder numpy seed 0 (its BatchNorm statistics "
+                     "from 2 seeded clips), bf16 autocast over f32 weights"}
+    _reset_launch_counts()
+    with torch.inference_mode():
+        x = clips(1)
+        with bf16:
+            y16 = model(x).float()
+        y32 = model(x)
+        torch.cuda.synchronize()
+        d = (y16 - y32).abs()
+        rec["maps"] = {"shape": list(y16.shape), "min": float(y16.min()),
+                       "max": float(y16.max()), "std_f32": float(y32.std()),
+                       "finite": bool(torch.isfinite(y16).all())}
+        rec["bf16_vs_f32"] = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+                              "tol": [BF16_MAX_TOL, BF16_MEAN_TOL]}
+        small = clips(1, 32, 32)
+        cpu = copy.deepcopy(model).cpu()
+        rec["card_f32_vs_cpu_f32"] = {"input": [1, 32, 32, 32, 3], "tol": CPU_TOL,
+                                      "max_abs_err": float((model(small).cpu()
+                                                            - cpu(small.cpu())).abs().max())}
+        del cpu, y16, y32
+        for b in TASED_BATCHES:
+            xb = clips(b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(7):  # 2 warm-up forwards, then 5 timed
+                t0 = time.perf_counter()
+                with bf16:
+                    model(xb)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            med = float(np.median(ms[2:]))
+            rec[f"batch_{b}"] = {"input": list(xb.shape), "forward_ms": ms,
+                                 "forward_ms_median": med, "clips_per_s": b * 1e3 / med,
+                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as flops, bf16:
+            model(xb)
+        rec["flop_per_clip"] = flops.get_total_flops() / xb.shape[0]
+
+        def forward():
+            with bf16:
+                model(xb)
+
+        rec["profile_batch_8"] = profile_device(torch, forward)
+        rec["transposed_convs_batch_8"] = _transposed_convs(torch, model, xb)
+    launches = _launch_counts()
+    rec.update(launches=launches, phase_seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    m = rec["maps"]
+    check(m["shape"] == [1, 224, 384] and m["finite"] and 0.0 <= m["min"] <= m["max"] <= 1.0,
+          f"TASEDv2 maps: {m}")
+    check(m["std_f32"] > 1e-3, f"TASEDv2's maps are flat: {m}")
+    e = rec["bf16_vs_f32"]
+    check(e["max_abs_err"] <= BF16_MAX_TOL and e["mean_abs_err"] <= BF16_MEAN_TOL,
+          f"TASEDv2 bf16 vs f32: {e}")
+    check(rec["card_f32_vs_cpu_f32"]["max_abs_err"] < CPU_TOL,
+          f"TASEDv2 card vs CPU: {rec['card_f32_vs_cpu_f32']}")
+    check(all(v == 0 for v in launches.values()), f"TASEDv2 launched a kernel: {launches}")
+    return launches
+
+
 # phase parallel: the synced-BatchNorm f32 step's loss against the unsharded
 # step's, relative: the same math, BatchNorm in two passes against cuDNN's
 PARALLEL_LOSS_TOL = 1e-5
@@ -2519,6 +2725,8 @@ def main() -> int:
     paths.update(phase_av(torch))
     torch.cuda.empty_cache()
     paths.update(phase_av_train(torch, card))
+    torch.cuda.empty_cache()
+    paths["tased"] = phase_tased(torch, card)
     torch.cuda.empty_cache()
     with kept:
         paths.update(phase_parallel(torch, card, kept.name, train))

@@ -20,7 +20,9 @@ runs while this process computes the references and JAX's side:
   back) or, for ViNet at grad_accum 1, here from rank 0's checkpoint, and
   the same state on both ranks (a digest);
 - the (data 1 x model 2) step, its parameters and Adam state sharded over
-  the model axis, in the same way; its checkpoint (written by rank 0 alone,
+  the model axis, in the same way, and of a small model with a transposed
+  convolution (``TinyTransposed``), whose weight shards on dim 1 (JAX's O
+  axis), its step and its gathered Adam state against one process's; its checkpoint (written by rank 0 alone,
   unsharded) loads into a one-process state here and equals this process's
   step, Adam state included, and an unsharded checkpoint (the data-2
   state's, written as one process writes its own) loads into the model-2
@@ -64,7 +66,9 @@ def run(tmp_path_factory):
     vinet8 = {"clip": rng.standard_normal(SHAPE).astype(np.float32),
               "gt": np.clip(rng.random(SHAPE[:1] + SHAPE[2:4]), 0.05, 1.0).astype(np.float32)}
     batches = {"vinet8": vinet8, "vinet4": {k: v[:4] for k, v in vinet8.items()},
-               "fusion": av_batch(seed=1, b=2, hw=(64, 96), clip_size=8)}
+               "fusion": av_batch(seed=1, b=2, hw=(64, 96), clip_size=8),
+               "ct": {"clip": rng.standard_normal((4, 2, 8, 8, 3)).astype(np.float32),
+                      "gt": np.clip(rng.random((4, 16, 16)), 0.05, 1.0).astype(np.float32)}}
     bn_inputs = {"bn3d": (rng.standard_normal((4, 6, 3, 5, 4)) * 2 + 1,
                           rng.standard_normal((4, 6, 3, 5, 4))),
                  "bn1d": (rng.standard_normal((4, 6, 50)) * 2 + 1,
@@ -145,6 +149,16 @@ def test_model_axis_step_equals_one_process(run):
     for rank in (r0, r1):
         assert rank["shard_rows"]["backbone.base1.0.conv_s.weight"] == 32  # 64 out-channels
         assert "decoder.convtsp4.6.weight" not in rank["shard_rows"]  # conv7's one channel
+
+
+def test_model_axis_shards_a_transposed_convolution_on_dim_1(run):
+    r0, r1 = (r["ct_model2"] for r in run["ranks"])
+    _same_on_both_ranks(r0, r1)
+    _check_step(r0)
+    assert r0["adam_err"] <= TOL, r0["adam_err"]
+    for rank in (r0, r1):  # (I, O, kT, kH, kW) = (3, 4, 1, 4, 4): O split in 2
+        assert rank["dims"] == {"ct.weight": 1, "bn.weight": 0, "bn.bias": 0}
+        assert rank["shard_shapes"]["ct.weight"] == (3, 2, 1, 4, 4)
 
 
 @pytest.mark.parametrize("name", ["data2", "model2"])

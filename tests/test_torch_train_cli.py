@@ -2,8 +2,9 @@
 directory of ``tests/fixtures.py`` (frames resized to 224 x 384, clip 8,
 batch 2): one step with validation and a checkpoint, then --resume goes on
 from its step; the best model is a reference-named state_dict that
-``load_weights`` and ``generate_result --file_weight`` read; --streaming_ft
-leaves the BatchNorm statistics as they were. What the CLI does not do
+``load_weights`` and ``generate_result --file_weight`` read, or at a path
+ending in .npz the JAX package's trees, which the port and JAX read;
+--streaming_ft leaves the BatchNorm statistics as they were. What the CLI does not do
 stops at startup: --multihost with --model_axis 2 (the JAX CLI's message), a
 model axis of 2 in a world of one process (create_mesh's), --streaming_ft
 with --use_sound True.
@@ -72,6 +73,40 @@ def test_best_model_feeds_generate_result(dirs, tmp_path):
                           "--file_weight", str(best), "--clip_size", "8", "--input_h", "32",
                           "--input_w", "32", "--dtype", "float32", "--device", "cpu"]) == 0
     assert len(os.listdir(out / "001")) == 20
+
+
+def test_npz_best_model_is_the_jax_tree_both_packages_read(dirs):
+    """--model_val_path x.npz writes the JAX package's trees (what its CLI
+    writes there): the port's load_weights and JAX's load_npz_tree (template
+    from eval_shape) both read it, and it holds the epoch's checkpointed
+    model, value for value."""
+    import shutil
+
+    import jax
+    import numpy as np
+
+    from vinet_tpu.io.convert import load_npz_tree
+    from vinet_tpu.models import ViNet as JaxViNet
+    from vinet_tpu_torch.io.checkpoint import restore_raw
+    from vinet_tpu_torch.io.weights import from_jax_trees
+
+    ck, best = dirs / "ck_npz", dirs / "best.npz"
+    try:
+        assert train_main(_args(dirs, "--checkpoint_dir", str(ck), "--model_val_path",
+                                str(best))) == 0
+        want = restore_raw(str(ck))["model"]
+        got = load_weights(str(best))
+        shapes = jax.eval_shape(JaxViNet(3, 8).init, jax.random.PRNGKey(0))
+        jax_sd = from_jax_trees(*jax.tree_util.tree_map(
+            np.asarray, load_npz_tree(str(best), *shapes)))
+    finally:  # a full-width model and its Adam state: some 500 MB
+        shutil.rmtree(ck, ignore_errors=True)
+        best.unlink(missing_ok=True)
+    model = ViNet(3, 8)
+    model.load_state_dict(got, strict=True)
+    for k, v in want.items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(got[k], v) and torch.equal(jax_sd[k], v), k
 
 
 def test_streaming_ft_keeps_bn_statistics(dirs):

@@ -500,6 +500,28 @@ def _summary(got: dict) -> dict:
             "digest": state_digest(got["state"])}
 
 
+class TinyTransposed(torch.nn.Module):
+    """(B, T, H, W, 3) -> (B, 2H, 2W) maps through a ConvTranspose3d 3 -> 4
+    ((1, 4, 4), stride (1, 2, 2), TASEDv2's), BatchNorm, ReLU, a (T, 1, 1)
+    conv to one channel and a sigmoid: a transposed convolution's weight for
+    the model axis to shard on dim 1, its out-channels."""
+
+    def __init__(self, t: int = 2):
+        super().__init__()
+        self.ct = torch.nn.ConvTranspose3d(3, 4, (1, 4, 4), (1, 2, 2), (0, 1, 1), bias=False)
+        self.bn = torch.nn.BatchNorm3d(4, eps=1e-3, momentum=0.001)
+        self.conv = torch.nn.Conv3d(4, 1, (t, 1, 1), bias=True)
+
+    def forward(self, x):
+        z = torch.relu(self.bn(self.ct(x.permute(0, 4, 1, 2, 3))))
+        return torch.sigmoid(self.conv(z))[:, 0, 0]
+
+
+def tiny_transposed() -> TinyTransposed:
+    torch.manual_seed(0)
+    return TinyTransposed().double()
+
+
 def rank_train(rank: int, world: int, trees: tuple, batches: dict, bn_inputs: dict,
                ckdir: str) -> dict:
     """In a world of 2: the synced BatchNorms on each rank's half; the
@@ -516,7 +538,7 @@ def rank_train(rank: int, world: int, trees: tuple, batches: dict, bn_inputs: di
     from vinet_tpu_torch.io.checkpoint import restore_checkpoint, restore_raw, save_checkpoint
     from vinet_tpu_torch.ops.norm import SyncBatchNorm
     from vinet_tpu_torch.parallel import create_mesh
-    from vinet_tpu_torch.training.trainer import init_train_state
+    from vinet_tpu_torch.training.trainer import init_train_state, optimizer_state_dict
 
     out = {"bn": {}, "data2": {}}
     for name, (x, w) in bn_inputs.items():
@@ -551,6 +573,20 @@ def rank_train(rank: int, world: int, trees: tuple, batches: dict, bn_inputs: di
     save_checkpoint(os.path.join(ckdir, "model2"), ts, write=rank == 0)
     del ts, got
     dist.barrier()
+
+    # a transposed convolution's weight shards on dim 1: the model-2 step
+    # and its gathered Adam state against one process's (rank 0)
+    ts, got = float64_step(tiny_transposed(), batches["ct"], 1, None, mesh2)
+    adam = optimizer_state_dict(ts)["state"]
+    out["ct_model2"] = {**_summary(got), "dims": dict(ts.shard_dims),
+                        "shard_shapes": {k: tuple(p.shape) for k, p in ts.shards.items()}}
+    if rank == 0:
+        ref_ts, want = float64_step(tiny_transposed(), batches["ct"], 1, None)
+        out["ct_model2"].update(step_errors(got, want))
+        out["ct_model2"]["adam_err"] = max(
+            rel_err(adam[i][k], v) for i, st in ref_ts.optimizer.state_dict()["state"].items()
+            for k, v in st.items())
+    del ts, got
 
     # an unsharded checkpoint into the model-2 state: the shards and their
     # Adam state are the file's, cut
@@ -594,16 +630,37 @@ def run_live_server(server, stacked: np.ndarray) -> dict:
     return {s: {i: m for si, i, m in got if si == s} for s in range(stacked.shape[0])}
 
 
-def infer_predictors(trees: tuple, fixture: tuple, mesh=None, streams_frames=None) -> dict:
+# the AV live servers of the parallel tests: tests/test_torch_av_serving.py's
+INFER_AV_LIVE = dict(fps=25.0, audio_fs=22050, batch=8, micro=16, span=168, warmup_chunk=64)
+
+
+def run_av_live_server(server, stacked: np.ndarray, wavs: list) -> dict:
+    """Feed (S, N, H, W, 3) frames 16 at a time with each stream's samples of
+    those frames on the stream clock, then the rest of the samples with no
+    frames, and flush: {stream: {frame: map}}."""
+    spf = server.audio_fs / server.fps
+    n, got = stacked.shape[1], []
+    for lo in range(0, n, 16):
+        got.extend(server.feed(stacked[:, lo:lo + 16],
+                               audio=[w[int(lo * spf): int(min(lo + 16, n) * spf)] for w in wavs]))
+    got.extend(server.feed(stacked[:, :0], audio=[w[int(n * spf):] for w in wavs]))
+    got.extend(server.flush())
+    return {s: {i: m for si, i, m in got if si == s} for s in range(stacked.shape[0])}
+
+
+def infer_predictors(trees: tuple, fixture: tuple, mesh=None) -> dict:
     """The port's predictors on the CPU in f32 over mesh (None: one
     process): {"parity", "streaming"} of ViNet(3, 8) with the trees on
-    inputs["frames"], "av_streaming" of the seeded AViNet at 32 x 32, and
-    "multilive" of the same ViNet(3, 8) on two streams (stream_mesh)."""
-    from vinet_tpu_torch.inference import (AVStreamingPredictor, MultiLiveServer,
-                                           SlidingWindowPredictor, StreamingPredictor)
+    fixture's frames, "multilive" of the same ViNet(3, 8) on two streams
+    (stream_mesh); of the seeded AViNet at 32 x 32 (clip 32) with audio,
+    "av_parity" (batch 4) and "av_streaming" on one video, and "av_multilive"
+    on two streams with their waveforms (stream_mesh)."""
+    from vinet_tpu_torch.inference import (AVMultiLiveServer, AVStreamingPredictor,
+                                           MultiLiveServer, SlidingWindowPredictor,
+                                           StreamingPredictor)
     from vinet_tpu_torch.inference.accuracy import av_fixture_model
 
-    frames, av_frames, av_exc, streams = fixture
+    frames, av_frames, av_exc, streams, av_streams, av_wavs = fixture
     common = dict(dtype=torch.float32, device="cpu", mesh=mesh)
     vinet = port_vinet(*trees, dtype=torch.float32)
     out = {"parity": dict(SlidingWindowPredictor(vinet, clip_size=8, batch=4, **common)
@@ -611,11 +668,16 @@ def infer_predictors(trees: tuple, fixture: tuple, mesh=None, streams_frames=Non
            "streaming": dict(StreamingPredictor(vinet, clip_size=8, batch=4, chunk=16, **common)
                              .predict_video(frames))}
     av = av_fixture_model(FIXTURE, seed=0, input_hw=(32, 32))
+    out["av_parity"] = dict(SlidingWindowPredictor(av, clip_size=32, batch=4, **common)
+                            .predict_video(av_frames, audio_fn=lambda s: av_exc[s]))
     out["av_streaming"] = dict(AVStreamingPredictor(av, batch=4, chunk=64, **common)
                                .predict_video(av_frames, audio_fn=lambda s: av_exc[s]))
     server = MultiLiveServer(vinet, streams=2, stream_mesh=mesh, dtype=torch.float32,
                              device="cpu", **INFER_LIVE)
     out["multilive"] = run_live_server(server, streams)
+    server = AVMultiLiveServer(av, streams=2, stream_mesh=mesh, dtype=torch.float32,
+                               device="cpu", **INFER_AV_LIVE)
+    out["av_multilive"] = run_av_live_server(server, av_streams, av_wavs)
     return out
 
 
@@ -636,15 +698,23 @@ def rank_infer(rank: int, world: int, trees: tuple, fixture: tuple, x128: np.nda
     return out
 
 
-def rank_clis(rank: int, world: int, train_args: list, generate_args: list, out: str) -> dict:
+def rank_clis(rank: int, world: int, train_args: list, generate_args: list, out: str,
+              sched_args: list, av_args: list, dave_args: list) -> dict:
     """In a world of 2: ``cli.train --multihost`` (its best model and its
     checkpoints under rank-named paths, so that what each rank writes
-    shows), then ``cli.generate_result --data_parallel`` into a rank-named
-    directory: each CLI's stdout."""
+    shows), then ``cli.generate_result --data_parallel``,
+    ``generate_result_audio_visual --data_parallel`` and
+    ``generate_result_dave --data_parallel`` into rank-named directories:
+    each CLI's stdout. Then ``cli.train --multihost`` with sched_args (the
+    learning-rate schedule on uneven shards): this rank's schedule at its
+    first steps and a digest of its weights after the run ("sched")."""
     import contextlib
     import io
 
+    import vinet_tpu_torch.training.trainer as trainer
     from vinet_tpu_torch.cli.generate_result import main as generate_main
+    from vinet_tpu_torch.cli.generate_result_audio_visual import main as av_main
+    from vinet_tpu_torch.cli.generate_result_dave import main as dave_main
     from vinet_tpu_torch.cli.train import main as train_main
 
     res = {}
@@ -653,9 +723,33 @@ def rank_clis(rank: int, world: int, train_args: list, generate_args: list, out:
                 "--multihost", "--model_val_path", os.path.join(out, f"best{rank}.pt"),
                 "--checkpoint_dir", os.path.join(out, f"ck{rank}")]),
             ("generate", generate_main, generate_args + [
-                "--data_parallel", "--save_path", os.path.join(out, f"maps{rank}")])):
+                "--data_parallel", "--save_path", os.path.join(out, f"maps{rank}")]),
+            ("av", av_main, av_args + [
+                "--data_parallel", "--save_path", os.path.join(out, f"av{rank}")]),
+            ("dave", dave_main, dave_args + [
+                "--data_parallel", "--save_path", os.path.join(out, f"dave{rank}")])):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             res[f"{name}_rc"] = main(argv)
         res[name] = buf.getvalue()
+
+    states, init = [], trainer.init_train_state
+
+    def capture(*args, **kw):
+        states.append(init(*args, **kw))
+        return states[-1]
+
+    trainer.init_train_state = capture
+    best = os.path.join(out, f"sched{rank}.pt")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            res["sched_rc"] = train_main(sched_args + ["--multihost", "--model_val_path", best])
+    finally:
+        trainer.init_train_state = init
+        if os.path.exists(best):
+            os.remove(best)
+    ts = states[0]
+    res["sched"] = {"lr": [ts.lr_schedule(k) for k in range(3)], "step": ts.step,
+                    "digest": state_digest({k: v.numpy() for k, v in
+                                            ts.model.state_dict().items()})}
     return res

@@ -14,10 +14,15 @@ statistics too), validation (an f32 forward in eval mode with the window's
 audio, resized to the native GT size, blurred, then loss / cc / sim; on a
 card the decoder ends in the fused head kernel), a full train-state
 checkpoint under --checkpoint_dir (``io/checkpoint.py``; --resume continues
-from the latest step with the same dropout stream), and the best model as a
-reference-named state_dict at --model_val_path (``io/export.py``), which
-``io/weights.py::load_weights``, ``generate_result --file_weight`` and
-``generate_result_audio_visual --file_weight`` read. --streaming_ft
+from the latest step with the same dropout stream), and the best model at
+--model_val_path: a reference-named state_dict (``io/export.py``), or for a
+path ending in .npz the JAX package's trees (``io/weights.py::save_npz_trees``,
+what the JAX CLI writes there), which ``io/weights.py::load_weights``,
+``generate_result --file_weight``, ``generate_result_audio_visual
+--file_weight`` and the JAX CLIs read. --lr_sched decays the rate 10x every
+--step_size epochs of optimizer steps, an epoch being the shortest shard's
+uncapped step count on every rank (``max_steps_per_epoch`` does not shorten
+it, as in the JAX CLI, which counts each process's own shard). --streaming_ft
 fine-tunes visual ViNet through the streaming forward instead
 (``training/streaming_ft.py``).
 
@@ -90,7 +95,8 @@ def build_parser():
                    help="SoundDataset: the fold lists' split (DIEM's have none)")
     p.add_argument("--multi_frame", type=int, default=0)
     p.add_argument("--model_val_path", type=str, default="vinet_best.pt",
-                   help="best-validation weights, a reference-named state_dict (.pt)")
+                   help="best-validation weights: a reference-named state_dict (.pt), "
+                        "or the JAX package's trees for a path ending in .npz")
     p.add_argument("--checkpoint_dir", type=str, default=None,
                    help="directory of full train-state checkpoints, one a epoch")
     p.add_argument("--resume", action="store_true")
@@ -192,10 +198,17 @@ def build_train_model(args, device):
 
 
 def save_best(args, model, epoch: int) -> None:
+    """The best model at --model_val_path: the JAX package's .npz trees for a
+    path ending in .npz (what the JAX CLI writes there), else the
+    reference's torch .pt."""
     from vinet_tpu_torch.io.export import export_torch_checkpoint
+    from vinet_tpu_torch.io.weights import save_npz_trees, to_jax_trees
 
     print("[%2d,  save, %s]" % (epoch, args.model_val_path), flush=True)
-    export_torch_checkpoint(args.model_val_path, model)
+    if args.model_val_path.endswith(".npz"):
+        save_npz_trees(args.model_val_path, *to_jax_trees(model.state_dict()))
+    else:
+        export_torch_checkpoint(args.model_val_path, model)
 
 
 def _upload(host: np.ndarray, device, dtype=None) -> torch.Tensor:
@@ -356,12 +369,14 @@ def run(args) -> int:
         n = torch.tensor([steps_per_epoch], device=device)
         torch.distributed.all_reduce(n, op=torch.distributed.ReduceOp.MIN)
         steps_per_epoch = int(n)
+    # the reference's --lr_sched names an undefined scheduler; here, as in the
+    # JAX package, 0.1x every step_size epochs' worth of optimizer steps, an
+    # epoch counted uncapped as JAX counts it, but the same on every rank
+    # (JAX's CLI takes each process's own loader length)
+    schedule = (step_decay(args.lr, args.step_size * max(1, steps_per_epoch))
+                if args.lr_sched else None)
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
-    # the reference's --lr_sched names an undefined scheduler; here, as in the
-    # JAX package, 0.1x every step_size epochs' worth of optimizer steps
-    schedule = (step_decay(args.lr, args.step_size * max(1, len(train_loader)))
-                if args.lr_sched else None)
     ts = init_train_state(model, args.lr, lr_schedule=schedule, mesh=mesh)
     if args.resume and args.checkpoint_dir and latest_step(args.checkpoint_dir) is not None:
         restore_checkpoint(args.checkpoint_dir, ts)

@@ -57,17 +57,24 @@ def load_map(path: str, *, size=None) -> np.ndarray:
     return gt.astype(np.float32)
 
 
-def save_map(arr: np.ndarray, path: str) -> None:
+def save_map(arr: np.ndarray, path: str, *, normalize: bool = True) -> None:
     """Save a saliency map as 8-bit grayscale with the reference's img_save
-    quantisation (min-max normalise, then round(x*255 + 0.5)) in f64.
+    quantisation in f64: min-max normalise (normalize=False: the map is
+    already in [0, 1]), then round(x*255 + 0.5).
 
     uint8 input must already be normalised and quantised
-    (ops/image.py::quantize_maps_u8) and is written as it is."""
+    (ops/image.py::quantize_maps_u8) and is written as it is; normalize
+    does not apply to it and must stay True, as in
+    ``vinet_tpu/io/images.py::save_map``."""
     a = np.asarray(arr)
-    if a.dtype != np.uint8:
+    if a.dtype == np.uint8:
+        if not normalize:  # JAX's assertion, kept under python -O
+            raise AssertionError("uint8 fast path requires pre-quantized input")
+    else:
         a = a.astype(np.float64)
-        mn, mx = a.min(), a.max()
-        a = (a - mn) / (mx - mn) if mx > mn else np.zeros_like(a)
+        if normalize:
+            mn, mx = a.min(), a.max()
+            a = (a - mn) / (mx - mn) if mx > mn else np.zeros_like(a)
         a = np.clip(np.round(a * 255.0 + 0.5), 0, 255).astype(np.uint8)
     im = Image.fromarray(a)
     if path.lower().endswith((".jpg", ".jpeg")):

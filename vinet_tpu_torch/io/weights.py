@@ -28,6 +28,13 @@ transforms as ``vinet_tpu/io/export.py``):
     -> the buffers of ``ops/quant.py::QuantConv3d``: w_q (DHWIO -> OIDHW, as
     a float weight), w_scale, x_scale, bias; load it with
     ``models/inference.py::load_int8_state_dict``
+  * TASEDv2 (``vinet_tpu/models/tased.py``): base1..base4 and convtsp1..4 at
+    the top level, names as they are; its ConvTranspose3d weights
+    (``TASED_TRANSPOSED``) (kT, kH, kW, I, O) -> torch's (I, O, kT, kH, kW)
+
+``to_jax_trees`` is the inverse, the port's state_dict -> JAX (params,
+state) trees, and ``save_npz_trees`` writes them as
+``vinet_tpu/io/convert.py::save_npz_tree`` does: the JAX CLIs' ``.npz``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,10 @@ _DEC_WITH_CONV6 = {"conv1": "convtsp1.0", "conv2": "convtsp2.0", "conv3": "convt
                    "conv7": "convtsp4.8"}
 _DEC_NO_CONV6 = {"conv1": "convtsp1.0", "conv2": "convtsp2.0", "conv3": "convtsp3.0",
                  "conv4": "convtsp4.0", "conv5": "convtsp4.3", "conv7": "convtsp4.6"}
+# TASEDv2's ConvTranspose3d modules (its decoder's Sequential indices, the
+# reference's and the JAX package's)
+TASED_TRANSPOSED = frozenset({"convtsp1.3", "convtsp2.0", "convtsp3.0", "convtsp4.0",
+                              "convtsp4.6", "convtsp4.12"})
 # params leaf -> state_dict leaf (float conv, or an int8 conv's buffers)
 _LEAVES = {"w": "weight", "b": "bias", "w_q": "w_q", "w_scale": "w_scale",
            "x_scale": "x_scale"}
@@ -71,6 +82,8 @@ def _conv_weight(w) -> torch.Tensor:
 
 
 def _leaf(key: str, value, path: list) -> torch.Tensor:
+    if key == "w" and ".".join(path) in TASED_TRANSPOSED:  # (kT,kH,kW,I,O) -> (I,O,kT,kH,kW)
+        return _tensor(value).permute(3, 4, 0, 1, 2).contiguous()
     if key in ("w", "w_q") and path[-1:] != ["bilinear"]:  # bilinear (O, I, J): torch's
         return _conv_weight(value)
     return _tensor(value)
@@ -118,9 +131,10 @@ def _transformer(out: dict, prefix: str, node: dict, max_len: int) -> None:
 
 
 def from_jax_trees(params: dict, state: dict, *, pe_len: int = FUSION_PE_LEN) -> dict:
-    """JAX-package ViNet, AViNet or AViNetFusion (params, state) nested dicts
-    of arrays -> the port's state_dict of tensors (reference names). pe_len:
-    the length of AViNetFusion's sin/cos table, its tokens + 3."""
+    """JAX-package ViNet, AViNet, AViNetFusion or TASEDv2 (params, state)
+    nested dicts of arrays -> the port's state_dict of tensors (reference
+    names). pe_len: the length of AViNetFusion's sin/cos table, its tokens
+    + 3."""
     out: dict = {}
 
     def walk(p_node: dict, s_node: dict, path: list) -> None:
@@ -155,6 +169,135 @@ def from_jax_trees(params: dict, state: dict, *, pe_len: int = FUSION_PE_LEN) ->
 
     walk(params, state, [])
     return out
+
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("state", "mean"), "running_var": ("state", "var")}
+_INT8_LEAVES = ("w_q", "w_scale", "x_scale")
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy on the host; bf16 as the 2-byte void np.load gives
+    for the JAX package's bf16 leaves."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _jax_weight(t: torch.Tensor, holder: str) -> torch.Tensor:
+    """A port weight in the JAX package's layout: a ConvTranspose3d's (I, O,
+    k...) or a conv's (O, I, k...) -> (kT, kH, kW, I, O), a 1-D conv's (O,
+    I, K) -> (K, I, O); the bilinear's (O, I, J) and Linear's (O, I) as
+    they are."""
+    if holder in TASED_TRANSPOSED:
+        return t.permute(2, 3, 4, 0, 1)
+    if t.dim() == 5:
+        return t.permute(2, 3, 4, 1, 0)
+    if t.dim() == 3 and holder.rsplit(".", 1)[-1] != "bilinear":
+        return t.permute(2, 1, 0)
+    return t
+
+
+def _transformer_key(path: list, leaf: str) -> tuple:
+    """An encoder tensor's JAX path and leaf: ``transformer_state_dict``
+    inverted, and ``transformer.transformer_encoder.layers`` ->
+    ``transformer.layers``."""
+    path = [p for p in path if p != "transformer_encoder"]
+    if path[-1] in ("self_attn", "multihead_attn") and leaf in ("in_proj_weight",
+                                                                "in_proj_bias"):
+        return path, {"in_proj_weight": "in_proj_w", "in_proj_bias": "in_proj_b"}[leaf]
+    if path[-1].startswith("norm"):
+        return path, {"weight": "scale", "bias": "bias"}[leaf]
+    return path, {"weight": "w", "bias": "b", "tgt_pos": "tgt_pos"}[leaf]
+
+
+def _sorted_tree(node):
+    """Every dict's keys in sorted order, as JAX's pytree flattening leaves
+    them (the JAX CLIs save host copies of jitted states)."""
+    if not isinstance(node, dict):
+        return node
+    return {k: _sorted_tree(node[k]) for k in sorted(node)}
+
+
+def to_jax_trees(state_dict: dict) -> tuple[dict, dict]:
+    """The port's ViNet, AViNet, AViNetFusion or TASEDv2 state_dict -> the
+    JAX package's (params, state) nested dicts of numpy arrays,
+    ``from_jax_trees`` inverted: weights in JAX's layouts, BatchNorm
+    weight/bias/running_mean/running_var -> params scale/bias and state
+    mean/var, the decoder's convtspN.i -> conv1..conv7, the encoder's names
+    back, keys sorted at every level. ``num_batches_tracked`` and the
+    sin/cos tables are dropped: JAX stores neither. The int8 path's
+    QuantConv3d buffers raise (no JAX CLI writes an int8 tree to
+    --model_val_path)."""
+    int8 = [k for k in state_dict if k.rsplit(".", 1)[-1] in _INT8_LEAVES]
+    if int8:
+        raise ValueError(f"{int8[0]}: an int8 QuantConv3d has no .npz tree here; "
+                         "write the float model")
+    bns = {k[: -len(".running_mean")] for k in state_dict if k.endswith(".running_mean")}
+    trees: dict = {"params": {}, "state": {}}
+    for name, t in state_dict.items():
+        holder, leaf = name.rsplit(".", 1)
+        if leaf == "num_batches_tracked" or name.endswith("pos_encoder.pe"):
+            continue
+        path = holder.split(".")
+        tree = "params"
+        if holder in bns:
+            tree, key = _BN_LEAVES[leaf]
+        elif path[0] == "transformer":
+            path, key = _transformer_key(path, leaf)
+        elif len(path) >= 3 and path[-3] == "decoder":
+            prefix = ".".join(path[:-2])
+            conv6 = f"{prefix}.convtsp4.8.weight" in state_dict
+            table = {v: k for k, v in decoder_names(conv6).items()}
+            path = path[:-2] + [table[".".join(path[-2:])]]
+            key = {"weight": "w", "bias": "b"}[leaf]
+        elif leaf in ("weight", "bias"):
+            key = "w" if leaf == "weight" else "b"
+        else:
+            raise KeyError(f"unhandled state_dict entry: {name}")
+        if key == "w":
+            t = _jax_weight(t.detach(), holder)
+        node = trees[tree]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = _array(t)
+    return _sorted_tree(trees["params"]), _sorted_tree(trees["state"])
+
+
+def _npz_leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _npz_leaves(v, name)
+        else:
+            yield name, v
+
+
+def save_npz_trees(path: str, params: dict, state: dict) -> None:
+    """Write (params, state) as ``vinet_tpu/io/convert.py::save_npz_tree``
+    does (np.savez): members 'params/<dotted>' then 'state/<dotted>' in the
+    trees' order, '.npz' appended to a path without it. A bf16 leaf (torch's
+    bits as a 2-byte void, or an ml_dtypes array) is written with the
+    header descr '<V2' that np.savez gives JAX's bf16 arrays, so each
+    member's bytes are JAX's; ``load_npz_trees`` and JAX's
+    ``load_npz_tree`` read it."""
+    import zipfile
+
+    if not path.endswith(".npz"):
+        path += ".npz"
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for prefix, tree in (("params", params), ("state", state)):
+            for name, value in _npz_leaves(tree):
+                a = np.asarray(value)
+                with zf.open(f"{prefix}/{name}.npy", "w", force_zip64=True) as f:
+                    if (a.dtype.kind == "V" and a.dtype.itemsize == 2) or \
+                            a.dtype.name == "bfloat16":
+                        np.lib.format.write_array_header_1_0(
+                            f, {"descr": "<V2", "fortran_order": False, "shape": a.shape})
+                        f.write(np.ascontiguousarray(a).tobytes())
+                    else:
+                        np.lib.format.write_array(f, a, allow_pickle=False)
 
 
 def load_npz_trees(path: str) -> tuple[dict, dict]:
@@ -202,8 +345,8 @@ def _soundnet_conv1d(name: str, t: torch.Tensor) -> torch.Tensor:
 
 
 def load_weights(path: str, *, pe_len: int = FUSION_PE_LEN) -> dict:
-    """A state_dict for the port's ViNet, AViNet or AViNetFusion from a
-    JAX-package .npz or a reference .pt state_dict (SoundNet's and
+    """A state_dict for the port's ViNet, AViNet, AViNetFusion or TASEDv2
+    from a JAX-package .npz or a reference .pt state_dict (SoundNet's and
     audio_conv_1x1's Conv2d weights made 1-D, a top-level 'pe' table as
     'transformer.pos_encoder.pe'). Load it with load_state_dict(strict=True),
     or with ``load_model_weights``. Two partial files give their entries

@@ -3,6 +3,7 @@ from vinet_tpu_torch.models.decoder import DECODER_PLANS, Decoder, DecoderPlan, 
 from vinet_tpu_torch.models.inference import cast_floating, fold_batchnorms
 from vinet_tpu_torch.models.s3d import MIXED_PLAN, InceptionBlock, S3DBackbone
 from vinet_tpu_torch.models.soundnet import SoundNet
+from vinet_tpu_torch.models.tased import TASEDv2
 from vinet_tpu_torch.models.transformer import (MultiheadAttention, Seq2SeqTransformer,
                                                 TransformerDecoderLayer, TransformerEncoder,
                                                 TransformerEncoderLayer)
@@ -24,6 +25,7 @@ __all__ = [
     "S3DBackbone",
     "Seq2SeqTransformer",
     "SoundNet",
+    "TASEDv2",
     "TransformerDecoderLayer",
     "TransformerEncoder",
     "TransformerEncoderLayer",

@@ -1,5 +1,6 @@
 """Device-side image ops: ImageNet normalisation, resize to the native frame
-size, the 11-tap Gaussian blur and uint8 quantisation of the maps.
+size, the 11-tap Gaussian blur, min-max normalisation and uint8
+quantisation of the maps.
 
 Semantics of ``vinet_tpu/ops/image.py`` and of the resize in
 ``vinet_tpu/inference/engine.py`` (``jax.image.resize(..., "bilinear",
@@ -64,6 +65,23 @@ def gaussian_blur(x: torch.Tensor, *, ksize: int = 11, sigma: float = 0.0) -> to
             out = out + ki * xp.narrow(axis, i, n)
         x = out
     return x
+
+
+def minmax_normalize(x: torch.Tensor, *, axes=None, eps: float = 0.0) -> torch.Tensor:
+    """Min-max normalisation to [0, 1], over the whole tensor (axes None) or
+    per sample over axes (the reference's normalize_map, its loss.py:41-51):
+    (x - min) / (max - min + eps)."""
+    if axes is None:
+        mn, mx = x.amin(), x.amax()
+    else:
+        mn, mx = x.amin(dim=axes, keepdim=True), x.amax(dim=axes, keepdim=True)
+    return (x - mn) / (mx - mn + eps)
+
+
+def to_uint8_map(x: torch.Tensor) -> torch.Tensor:
+    """The reference's img_save quantisation of a map already in [0, 1]:
+    round(x*255 + 0.5) clamped to [0, 255], as uint8 (its utils.py:71)."""
+    return torch.clamp(torch.round(x * 255.0 + 0.5), 0, 255).to(torch.uint8)
 
 
 def quantize_maps_u8(maps: torch.Tensor) -> torch.Tensor:

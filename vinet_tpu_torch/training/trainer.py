@@ -25,14 +25,15 @@ decoder ends in the fused head kernel.
 Data and model parallelism (``parallel/``; the JAX package's GSPMD step on
 a mesh): ``init_train_state(..., mesh=)`` swaps in ``SyncBatchNorm`` over
 the data group, so the statistics are the global batch's, and stores the
-parameters that ``param_partition_specs`` shards as model-axis shards: the
-optimizer, and with it the Adam state, holds the shards, and each step
-gathers them (``all_gather``, backward "slice") and runs the model on the
-gathered tensors (``torch.func.functional_call``). Every model rank computes
-the whole model on the same rows, so a shard's gradient is its slice of
-the full gradient; it is not summed over the model group. After the update
-the model's own parameters are refreshed from the shards, so evaluation,
-checkpoints and exports see the full tensors. ``make_train_step(...,
+parameters that ``param_partition_specs`` shards as model-axis shards, each
+cut along its spec's dim (1 for a transposed convolution's weight, else 0):
+the optimizer, and with it the Adam state, holds the shards, and each step
+gathers them (``all_gather`` along that dim, backward "slice") and runs the
+model on the gathered tensors (``torch.func.functional_call``). Every model
+rank computes the whole model on the same rows, so a shard's gradient is its
+slice of the full gradient; it is not summed over the model group. After the
+update the model's own parameters are refreshed from the shards, so
+evaluation, checkpoints and exports see the full tensors. ``make_train_step(...,
 mesh=)`` takes the global batch on every rank: the batch is cut into
 grad_accum contiguous microbatches and each data rank takes its rows of
 each, as JAX cuts the global batch and then shards each microbatch; dropout
@@ -84,6 +85,8 @@ class TrainState:
     mesh: Mesh | None = None
     # parameter name -> its model-axis shard, the tensor the optimizer updates
     shards: dict = dataclasses.field(default_factory=dict)
+    # parameter name -> the dim its shard is cut along (``param_partition_specs``)
+    shard_dims: dict = dataclasses.field(default_factory=dict)
 
 
 def init_train_state(model: nn.Module, lr: float = 1e-4, *, seed: int | None = 0,
@@ -94,7 +97,7 @@ def init_train_state(model: nn.Module, lr: float = 1e-4, *, seed: int | None = 0
     mesh, model's BatchNorms are synced over the data group and its
     parameters sharded over the model axis (the module docstring); a world
     of one rank leaves model as it is."""
-    shards = {}
+    shards, dims = {}, {}
     if mesh is not None:
         if mesh.coords is None:
             raise ValueError("this rank is outside the mesh")
@@ -102,11 +105,14 @@ def init_train_state(model: nn.Module, lr: float = 1e-4, *, seed: int | None = 0
         if mesh.groups["model"] is not None:
             specs = param_partition_specs(model, mesh)
             m, j = mesh.shape["model"], mesh.coords[1]
-            shards = {name: nn.Parameter(p.detach().chunk(m)[j].clone())
-                      for name, p in model.named_parameters() if specs[name] == 0}
+            dims = {name: specs[name] for name, _ in model.named_parameters()
+                    if specs[name] is not None}
+            shards = {name: nn.Parameter(p.detach().chunk(m, dims[name])[j]
+                                         .clone(memory_format=torch.contiguous_format))
+                      for name, p in model.named_parameters() if name in dims}
     params = [shards.get(name, p) for name, p in model.named_parameters()]
     return TrainState(model=model, optimizer=adam(params, lr), dropout_seed=seed,
-                      lr_schedule=lr_schedule, mesh=mesh, shards=shards)
+                      lr_schedule=lr_schedule, mesh=mesh, shards=shards, shard_dims=dims)
 
 
 def _model_group(ts: TrainState):
@@ -121,7 +127,8 @@ def _forward(ts: TrainState) -> Callable:
     group = _model_group(ts)
 
     def run(*args, **kw):
-        full = {name: all_gather(shard, group) for name, shard in ts.shards.items()}
+        full = {name: all_gather(shard, group, ts.shard_dims[name])
+                for name, shard in ts.shards.items()}
         return torch.func.functional_call(ts.model, full, args, kw, strict=False)
 
     return run
@@ -132,7 +139,7 @@ def _refresh_from_shards(ts: TrainState) -> None:
     params = dict(ts.model.named_parameters())
     with torch.no_grad():
         for name, shard in ts.shards.items():
-            params[name].copy_(all_gather(shard, _model_group(ts)))
+            params[name].copy_(all_gather(shard, _model_group(ts), ts.shard_dims[name]))
 
 
 def _optimizer_params(ts: TrainState) -> list:
@@ -147,12 +154,12 @@ def optimizer_state_dict(ts: TrainState) -> dict:
     sd = ts.optimizer.state_dict()
     if not ts.shards:
         return sd
-    sharded = {id(p) for p in ts.shards.values()}
+    dims = {id(ts.shards[name]): d for name, d in ts.shard_dims.items()}
     state = dict(sd["state"])
     for i, p in enumerate(_optimizer_params(ts)):
-        if id(p) in sharded and i in state:
-            state[i] = {k: all_gather(v, _model_group(ts)) if v.shape == p.shape else v
-                        for k, v in state[i].items()}
+        if id(p) in dims and i in state:
+            state[i] = {k: all_gather(v, _model_group(ts), dims[id(p)]) if v.shape == p.shape
+                        else v for k, v in state[i].items()}
     return {**sd, "state": state}
 
 
@@ -160,13 +167,15 @@ def load_optimizer_state_dict(ts: TrainState, sd: dict) -> None:
     """Load an optimizer state_dict of the unsharded model
     (``optimizer_state_dict``'s) into ts, each shard's state cut from it."""
     if ts.shards:
-        sharded = {id(p) for p in ts.shards.values()}
+        dims = {id(ts.shards[name]): d for name, d in ts.shard_dims.items()}
         m, j = ts.mesh.shape["model"], ts.mesh.coords[1]
         state = dict(sd["state"])
         for i, p in enumerate(_optimizer_params(ts)):
-            if id(p) in sharded and i in state:
-                state[i] = {k: v.chunk(m)[j].clone() if v.dim() and v.shape[0] == m * p.shape[0]
-                            else v for k, v in state[i].items()}
+            d = dims.get(id(p))
+            if d is not None and i in state:
+                state[i] = {k: v.chunk(m, d)[j].clone(memory_format=torch.contiguous_format)
+                            if v.dim() > d and v.shape[d] == m * p.shape[d] else v
+                            for k, v in state[i].items()}
         sd = {**sd, "state": state}
     ts.optimizer.load_state_dict(sd)
 
@@ -179,7 +188,7 @@ def load_model_state_dict(ts: TrainState, sd: dict) -> None:
     m = ts.mesh.shape["model"] if ts.mesh is not None else 1
     with torch.no_grad():
         for name, shard in ts.shards.items():
-            shard.copy_(params[name].chunk(m)[ts.mesh.coords[1]])
+            shard.copy_(params[name].chunk(m, ts.shard_dims[name])[ts.mesh.coords[1]])
 
 
 def dropout_generator(seed: int | None, device, *keys: int) -> torch.Generator | None:
