@@ -219,11 +219,16 @@ def to_device(batch: dict, device) -> dict:
     """A host batch on device: the clip normalised there, the GT and the
     audio (where the batch has it) as f32."""
     from vinet_tpu_torch.data.pipeline import device_preprocess
+    from vinet_tpu_torch.utils import trace
 
-    out = {"clip": device_preprocess(_upload(batch["clip"], device))}
-    for k in ("gt", "audio"):
-        if k in batch:
-            out[k] = _upload(batch[k], device, np.float32)
+    with trace.span("train.upload") as attrs:
+        out = {"clip": device_preprocess(_upload(batch["clip"], device))}
+        for k in ("gt", "audio"):
+            if k in batch:
+                out[k] = _upload(batch[k], device, np.float32)
+        if attrs is not None:  # the uint8 clips and the f32 GT and audio
+            attrs["bytes"] = (np.asarray(batch["clip"]).nbytes
+                              + sum(v.nbytes for k, v in out.items() if k != "clip"))
     return out
 
 

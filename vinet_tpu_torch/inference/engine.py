@@ -34,6 +34,7 @@ from vinet_tpu_torch.device import resolve_device
 from vinet_tpu_torch.models.inference import cast_floating, fold_batchnorms
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
 from vinet_tpu_torch.parallel.mesh import batch_slice, gather_batch
+from vinet_tpu_torch.utils import trace
 
 FETCH_EVERY = 4  # window batches kept on the device per device->host copy
 BLUR_KSIZE = 11  # the reference's cv2.GaussianBlur(map, (11, 11), 0)
@@ -85,6 +86,7 @@ class SlidingWindowPredictor:
         self.dtype = dtype
         self.mesh = mesh
         self.rows = batch_slice(mesh, batch)  # this rank's rows of a window batch
+        self.videos = 0  # predict_video calls begun; the spans' request is the current one
 
     @torch.inference_mode()
     def run_batch(self, frames: torch.Tensor, idx: torch.Tensor, out_hw: tuple,
@@ -93,17 +95,18 @@ class SlidingWindowPredictor:
         """frames (N, H, W, 3) uint8 and idx (B, T) on the device [audio (B,
         L, 1) and flip (B,) bool, the warm-up rows] -> (B, out_h, out_w)
         blurred maps, f32 or uint8."""
-        x = device_preprocess(frames[idx]).to(self.dtype)
-        if audio is None:
-            maps = self.model(x).float()
-        else:
-            audio = audio.to(self.dtype)
-            audio = torch.where(flip[:, None, None], audio.flip(1), audio)
-            maps = self.model(x, audio).float()
-        if tuple(out_hw) != tuple(maps.shape[1:]):
-            maps = resize_bilinear(maps, *out_hw)
-        maps = gaussian_blur(maps, ksize=BLUR_KSIZE)
-        return quantize_maps_u8(maps) if quantize_u8 else maps
+        with trace.span("engine.run_batch", request=self.videos - 1, rows=idx.shape[0]):
+            x = device_preprocess(frames[idx]).to(self.dtype)
+            if audio is None:
+                maps = self.model(x).float()
+            else:
+                audio = audio.to(self.dtype)
+                audio = torch.where(flip[:, None, None], audio.flip(1), audio)
+                maps = self.model(x, audio).float()
+            if tuple(out_hw) != tuple(maps.shape[1:]):
+                maps = resize_bilinear(maps, *out_hw)
+            maps = gaussian_blur(maps, ksize=BLUR_KSIZE)
+            return quantize_maps_u8(maps) if quantize_u8 else maps
 
     def predict_video(self, frames_u8: np.ndarray, *, out_size=None, pad_short=False,
                       audio_fn=None, quantize_u8=False):
@@ -123,12 +126,17 @@ class SlidingWindowPredictor:
         if not plan:
             return
         out_hw = tuple(out_size) if out_size is not None else frames_u8.shape[1:3]
-        frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+        video = self.videos
+        self.videos += 1
+        with trace.span("engine.upload", request=video, bytes=frames_u8.nbytes):
+            frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
 
         pending = []  # (tasks, maps on the device)
 
         def flush():
-            fetched = torch.cat([m for _, m in pending]).cpu().numpy()
+            with trace.span("engine.fetch", request=video,
+                            bytes=sum(m.nbytes for _, m in pending)):
+                fetched = torch.cat([m for _, m in pending]).cpu().numpy()
             k = 0
             for tasks, m in pending:
                 for j, task in enumerate(tasks):

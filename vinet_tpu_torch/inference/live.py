@@ -34,12 +34,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vinet_tpu_torch.data.audio import windowed_excerpt
+from vinet_tpu_torch.data.audio import MAX_AUDIO_WIN, windowed_excerpt
 from vinet_tpu_torch.data.pipeline import device_preprocess
 from vinet_tpu_torch.inference.streaming import (MAXP3_DENSE, MAXT4_DENSE, AVStreamingPredictor,
                                                  StreamingPredictor, _split_time, valid_tconv)
 from vinet_tpu_torch.models.layers import BasicConv3d, SepConv3d
 from vinet_tpu_torch.models.s3d import InceptionBlock
+from vinet_tpu_torch.utils import trace
 
 
 def _valid_apply(mod: nn.Module, x: torch.Tensor):
@@ -152,6 +153,7 @@ class LiveStreamingPredictor(StreamingPredictor):
             "D2": (bb.base3, _TAIL_D2), "E1": (MAXT4_DENSE, _TAIL_E1), "E2": (bb.base4, _TAIL_E2)}
         self._out_size = None
         self._quantize_u8 = False
+        self.feeds = 0  # feed() and flush steps served; the spans' request is the current one
         self._reset()
 
     # ------------------------------------------------------------- state --
@@ -253,11 +255,18 @@ class LiveStreamingPredictor(StreamingPredictor):
     def _emit(self, tl, dense, starts: list, frames: list, audio=None):
         """Decode one window batch of every stream; yields (stream, frame,
         map) for the real windows."""
-        maps = self._decode(tl, dense, self._starts(starts), audio)
+        feed = self.feeds - 1
+        with trace.span("live.decode", request=feed, rows=self.streams * self.batch,
+                        real_rows=self.streams * len(frames)):
+            maps = self._decode(tl, dense, self._starts(starts), audio)
         maps = maps.reshape(self.streams, self.batch, *maps.shape[1:])[:, : len(frames)]
-        out = self._post(maps.reshape(-1, *maps.shape[2:]), self._out_hw, self._quantize_u8)
-        out = self._all_streams(out.reshape(self.streams, len(frames), *out.shape[1:]))
-        out = out.cpu().numpy()
+        with trace.span("live.post", request=feed):
+            out = self._post(maps.reshape(-1, *maps.shape[2:]), self._out_hw, self._quantize_u8)
+        with trace.span("live.fetch", request=feed) as attrs:
+            out = self._all_streams(out.reshape(self.streams, len(frames), *out.shape[1:]))
+            out = out.cpu().numpy()
+            if attrs is not None:
+                attrs["bytes"] = out.nbytes
         for j, f in enumerate(frames):
             for s in range(out.shape[0]):
                 yield s, f, out[s, j]
@@ -313,6 +322,8 @@ class LiveStreamingPredictor(StreamingPredictor):
         that became final."""
         if frames_u8.shape[1] == 0:
             return
+        feed = self.feeds
+        self.feeds += 1
         if self._tails is None:
             h, w = frames_u8.shape[2:4]
             self._out_hw = tuple(self._out_size or (h, w))
@@ -323,9 +334,13 @@ class LiveStreamingPredictor(StreamingPredictor):
         if not self._warmed:
             self._early.extend(slabs[: max(0, self.warmup_chunk - len(self._early))])
         while len(self._pending) >= self.micro:
-            chunk = np.stack(self._pending[: self.micro], axis=1)
+            with trace.span("live.upload", request=feed,
+                            bytes=self.micro * self._pending[0].nbytes):
+                chunk = np.stack(self._pending[: self.micro], axis=1)
+                frames = self._upload(torch.from_numpy(chunk))
             self._pending = self._pending[self.micro:]
-            self._advance(self._upload(torch.from_numpy(chunk)))
+            with trace.span("live.advance", request=feed):
+                self._advance(frames)
             self._n_in += self.micro
         if not self._warmed and len(self._early) >= self.warmup_chunk:
             yield from self._emit_warmup()
@@ -466,7 +481,10 @@ class AVLiveStreamingPredictor(AVStreamingPredictor, LiveStreamingPredictor):
     def _window_audio(self, starts: list, flipped: bool) -> torch.Tensor:
         """(S·batch, 70560, 1) excerpts of every stream for the window start
         frames, reversed for the warm-up windows; padded rows are zeros."""
-        exc = [[self._excerpt(s, st) for st in starts] for s in range(self.streams)]
-        if flipped:
-            exc = [[e[::-1] for e in row] for row in exc]
-        return self._audio(exc)
+        with trace.span("live.audio", request=self.feeds - 1,
+                        bytes=self.streams * self.batch * MAX_AUDIO_WIN * 4,
+                        windows=self.streams * len(starts)):
+            exc = [[self._excerpt(s, st) for st in starts] for s in range(self.streams)]
+            if flipped:
+                exc = [[e[::-1] for e in row] for row in exc]
+            return self._audio(exc)

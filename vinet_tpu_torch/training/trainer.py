@@ -60,6 +60,7 @@ from vinet_tpu_torch.parallel.collectives import all_gather, all_reduce
 from vinet_tpu_torch.parallel.mesh import Mesh, batch_slice, shard_batch
 from vinet_tpu_torch.parallel.partition import param_partition_specs
 from vinet_tpu_torch.training.losses import LossConfig, cc, loss_func, similarity
+from vinet_tpu_torch.utils import trace
 
 
 def adam(params, lr: float = 1e-4) -> torch.optim.Adam:
@@ -309,15 +310,18 @@ def make_train_step(loss_cfg: LossConfig, *, compute_dtype: torch.dtype | None =
                     gen = RowsGenerator(gen, n // grad_accum, rows)
                 kw = {"generator": gen}
             mb = {k: v[rows] for k, v in mb.items()}
-            with autocast(dev, compute_dtype):
-                pred = forward(*_inputs(mb), **kw)
-            acc = torch.promote_types(pred.dtype, torch.float32)  # f32, float64 for float64
-            loss = loss_func(pred.to(acc), mb["gt"].to(acc), loss_cfg)
-            (loss / grad_accum).backward()
+            with trace.span("train.forward", request=ts.step):
+                with autocast(dev, compute_dtype):
+                    pred = forward(*_inputs(mb), **kw)
+                acc = torch.promote_types(pred.dtype, torch.float32)  # f32, float64 for float64
+                loss = loss_func(pred.to(acc), mb["gt"].to(acc), loss_cfg)
+            with trace.span("train.backward", request=ts.step):
+                (loss / grad_accum).backward()
             losses.append(loss.detach())
-        loss = all_reduce(torch.stack(losses).mean(),
-                          mesh.groups["data"] if mesh is not None else None, "mean")
-        grad_norm = apply_update(ts)
+        with trace.span("train.update", request=ts.step):
+            loss = all_reduce(torch.stack(losses).mean(),
+                              mesh.groups["data"] if mesh is not None else None, "mean")
+            grad_norm = apply_update(ts)
         return ts, {"loss": loss, "grad_norm": grad_norm}
 
     return step

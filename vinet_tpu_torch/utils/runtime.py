@@ -8,12 +8,14 @@ nothing ahead).
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 
 import torch
 import torch.distributed as dist
 
 from vinet_tpu_torch.device import resolve_device
+from vinet_tpu_torch.utils import trace
 
 
 def init_distributed(device="cuda") -> tuple:
@@ -60,12 +62,19 @@ def num_params(model: torch.nn.Module) -> int:
 @contextlib.contextmanager
 def enable_profiling(logdir: str):
     """torch.profiler around a code region (the host, and the card when
-    there is one); writes a Chrome trace to ``logdir/trace.json`` (open it in
-    chrome://tracing or Perfetto). Yields the profiler."""
+    there is one), the operator's exporter. The port's spans
+    (``utils/trace.py``) are on while it records. Writes a Chrome trace to
+    ``logdir/trace.json`` (open it in chrome://tracing or Perfetto), where
+    each span is a ``user_annotation`` range beside the kernels, and the
+    region's span records, each with its attrs and ``device_ms``, to
+    ``logdir/spans.json``. Yields the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    trace.clear()
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump(trace.records(), f)
