@@ -21,7 +21,11 @@ fails. Phases, each printing one JSON line:
    the card's bound; at 4096 x 1024 x 1024 also with the host's cost per
    call left in. The head in both modes: fused with the last 2x upsample on
    the coarse z5 (the main path's) and at full resolution; beside them the
-   time of that upsample alone;
+   time of that upsample alone. The decoder conv kernel (``dconv``) at
+   every DCONV_CASES shape against the f32 sum of its bf16 products, and at
+   the parity and live paths' shapes its time with x's channels-last copy
+   beside its bound, its plain version (cuDNN's heuristics) and
+   cuDNN's benchmark-mode choice;
 4. model: the full-width ViNet(3, 32) with the committed fixture weights
    (``artifacts/streamft_fixture.npz``), BatchNorm folded, on a window batch
    of 16 clips of 32 x 224 x 384 in bf16, against f32 on the card, and f32 on
@@ -165,7 +169,7 @@ import tempfile
 import time
 
 FIXTURE = os.path.join("artifacts", "streamft_fixture.npz")
-KERNELS = ("saliency_head", "int8_mm", "tconv")
+KERNELS = ("saliency_head", "int8_mm", "tconv", "dconv")
 # H100 SXM data sheet: HBM rate, and dense peaks by input type (f32 on the
 # CUDA cores; bf16 and int8 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -216,7 +220,7 @@ def phase_card() -> str:
     return smi
 
 
-SASS_OPS = ("IMMA", "HMMA", "LDGSTS", "LDSM")  # int8 / bf16 mma, cp.async, ldmatrix
+SASS_OPS = ("IMMA", "HMMA", "HGMMA", "LDGSTS", "LDSM")  # mma int8/bf16, wgmma, cp.async, ldmatrix
 
 
 def sass_counts(build, so) -> dict:
@@ -267,7 +271,11 @@ def phase_build() -> None:
         functions[name] = {fn: {**ptxas.get(fn, {}), **ops.get(fn, {})}
                            for fn in sorted(set(ptxas) | set(ops))}
         sass[name] = {op: sum(c[op] for c in ops.values()) for op in SASS_OPS}
-        if name != "saliency_head":  # the tensor-core GEMM kernels
+        if name == "dconv":  # wgmma from a cp.async ring; its transpose has neither
+            for fn, c in ops.items():
+                check("channels_last" in fn or (c["HGMMA"] > 0 and c["LDGSTS"] > 0),
+                      f"dconv: {fn} lacks HGMMA or LDGSTS: {c}")
+        elif name != "saliency_head":  # the mma.sync GEMM kernels
             for fn, c in ops.items():
                 check(c["IMMA"] > 0 if "NS_4Int8E" in fn else c["HMMA"] > 0,  # element type
                       f"{name}: {fn} has no tensor-core instruction")
@@ -575,6 +583,145 @@ def phase_gemm_kernels(torch) -> dict:
     return rows
 
 
+# (case, x shape, w shape, stride_t, pad_t, padding, bias, view): the
+# decoder's (kt, 3, 3) convs as the main paths call dconv, bf16 at 224 x 384.
+# parity: a window batch of 16 (conv5's fold on the replicate-padded z4);
+# live: a feed of 12 streams x 16 frames (the dense front's new positions
+# over their kt - 1 buffered ones, then the AV decode of 12 x 16 windows:
+# conv1 on the fused y0, the windowed taps, conv3's and conv5's folds). view,
+# as the live decode hands them: None (x and w as made), else (T outermost:
+# x gathered from a timeline, x's T slice, w's kt slice), each slice taken
+# of the shapes given. The rest are ragged: M, N and T_out * H_out * W_out
+# off every multiple the kernel tiles by, C below a K step, temporal padding,
+# a bias, gathered and sliced inputs.
+DCONV_CASES = [
+    ("parity_conv1", (16, 1024, 4, 7, 12), (832, 1024, 1, 3, 3), 1, 0, 1, False, None),
+    ("parity_conv2", (16, 832, 12, 14, 24), (480, 832, 3, 3, 3), 3, 0, 1, False, None),
+    ("parity_conv3", (16, 480, 20, 28, 48), (192, 480, 5, 3, 3), 5, 0, 1, False, None),
+    ("parity_conv4", (16, 192, 20, 56, 96), (64, 192, 5, 3, 3), 5, 0, 1, False, None),
+    ("parity_conv5_fold", (16, 64, 4, 58, 98), (128, 64, 2, 3, 3), 2, 0, 0, False, None),
+    ("live_c2y", (48, 832, 6, 14, 24), (480, 832, 3, 3, 3), 1, 0, 1, False, None),
+    ("live_c3y", (24, 480, 12, 28, 48), (192, 480, 5, 3, 3), 1, 0, 1, False, None),
+    ("live_c4y", (24, 192, 12, 56, 96), (64, 192, 5, 3, 3), 1, 0, 1, False, None),
+    ("live_conv1", (192, 1024, 4, 7, 12), (832, 1024, 1, 3, 3), 1, 0, 1, False, None),
+    ("live_conv2_z1", (192, 832, 4, 14, 24), (480, 832, 3, 3, 3), 1, 0, 1, False,
+     (False, (0, 3), None)),
+    ("live_conv2_z1_t3", (192, 832, 4, 14, 24), (480, 832, 3, 3, 3), 1, 0, 1, False,
+     (False, (3, 4), (0, 1))),
+    ("live_conv2_y1", (192, 832, 2, 14, 24), (480, 832, 3, 3, 3), 1, 0, 1, False,
+     (True, None, (1, 3))),
+    ("live_conv3_fold", (192, 480, 4, 16, 26), (768, 480, 4, 3, 3), 1, 0, 0, False, None),
+    ("live_conv3_y2", (192, 480, 1, 28, 48), (192, 480, 5, 3, 3), 1, 0, 1, False,
+     (True, None, (4, 5))),
+    ("live_conv4_z3", (192, 192, 4, 56, 96), (64, 192, 5, 3, 3), 1, 0, 1, False,
+     (False, None, (0, 4))),
+    ("live_conv4_y3", (192, 192, 1, 56, 96), (64, 192, 5, 3, 3), 1, 0, 1, False,
+     (True, None, (4, 5))),
+    ("live_conv5_fold", (192, 64, 4, 58, 98), (128, 64, 2, 3, 3), 2, 0, 0, False, None),
+    ("ragged_m567_n37_bias", (3, 64, 5, 7, 9), (37, 64, 3, 3, 3), 2, 1, 1, True, None),
+    ("ragged_c8_valid", (2, 8, 4, 6, 5), (10, 8, 3, 3, 3), 1, 0, 0, True, None),
+    ("ragged_c24_n200", (2, 24, 3, 9, 11), (200, 24, 2, 3, 3), 1, 1, 1, False, None),
+    ("ragged_c40_n300_m1", (1, 40, 1, 3, 3), (300, 40, 1, 3, 3), 1, 0, 0, True, None),
+    ("ragged_gathered_slices_bias", (3, 24, 6, 7, 9), (37, 24, 5, 3, 3), 1, 0, 1, True,
+     (True, (1, 5), (1, 4))),
+    ("gathered_z1_t0", (8, 832, 4, 14, 24), (480, 832, 3, 3, 3), 1, 0, 1, False,
+     (True, (0, 3), None)),
+]
+# kernel vs the f32 sum of the same bf16 products (cuDNN in f32, TF32 off):
+# the kernel rounds its f32 sum once to bf16 (at most 2^-8 of the value) and
+# sums in another order (far below that, relative to the largest output)
+DCONV_REL_TOL, DCONV_ABS_TOL = 2.0 ** -8, 1e-3
+
+
+def _dconv_err(torch, got, want) -> float:
+    """max |got - want| / (2^-8 |want| + 1e-3 max |want|): at most 1 within
+    the tolerance."""
+    scale = float(want.abs().max())
+    err = (got.float() - want).abs() / (DCONV_REL_TOL * want.abs() + DCONV_ABS_TOL * scale)
+    return float(err.max())
+
+
+def phase_dconv(torch) -> dict:
+    """The decoder conv kernel at every DCONV_CASES shape: against the f32
+    sum of its bf16 products, and (the main paths' shapes) its time through
+    the wrapper (x's channels-last copy included, the weight's K-major copy
+    kept from the first call, as on the main paths), x's copy alone, beside
+    its bound, its plain version (F.conv3d in bf16: cuDNN's heuristics, the route before
+    the kernel) and cuDNN's benchmark-mode choice (``library_ms``). Returns
+    the kernels-line row (parity conv3)."""
+    import torch.nn.functional as F
+
+    from vinet_tpu_torch.ops import dconv
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    row = None
+    tf32, bench = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark
+    for i, (case, xs, ws, st, pt, pad, has_bias, view) in enumerate(DCONV_CASES):
+        g = torch.Generator(device="cuda").manual_seed(i)
+        t_outer, x_t, w_kt = view or (False, None, None)
+        if t_outer:  # gathered: (B, T, C, H, W) in memory
+            x = torch.randn((xs[0], xs[2], xs[1], *xs[3:]), generator=g, device="cuda")
+            x = x.to(torch.bfloat16).transpose(1, 2)
+        else:
+            x = torch.randn(xs, generator=g, device="cuda").to(torch.bfloat16)
+        fan_in = ws[1] * ws[2] * 9
+        w = (torch.randn(ws, generator=g, device="cuda") / fan_in ** 0.5).to(torch.bfloat16)
+        b = torch.randn(ws[0], generator=g, device="cuda").to(torch.bfloat16) if has_bias else None
+        if x_t is not None:
+            x = x[:, :, x_t[0]: x_t[1]]
+        if w_kt is not None:
+            w = w[:, :, w_kt[0]: w_kt[1]]
+        kw = {"stride_t": st, "pad_t": pt, "padding": pad}
+        before = dconv.launches
+        got = dconv.dconv(x, w, b, **kw)
+        torch.cuda.synchronize()
+        check(dconv.launches == before + 1, f"dconv {case}: no launch")
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            want = dconv.dconv_plain(x.float(), w.float(), None if b is None else b.float(), **kw)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        err = _dconv_err(torch, got, want)
+        rec = {"phase": "dconv_check", "case": case, "x": list(x.shape), "w": list(w.shape),
+               "x_strides": list(x.stride()), "w_strides": list(w.stride()), "stride_t": st,
+               "pad_t": pt, "padding": pad, "bias": has_bias, "err_over_tol": err}
+        check(got.shape == want.shape and got.dtype == torch.bfloat16 and err <= 1.0,
+              f"dconv {case}: error {err} of the tolerance")
+        del want
+        if case.startswith(("parity", "live")):
+            m = got.numel() // w.shape[0]
+            ops = 2 * m * w.shape[0] * w.shape[1] * w.shape[2] * 9
+            nbytes = 2 * (x.numel() + w.numel() + got.numel())
+            bound_ms, bound_by = bound(nbytes, ops, torch.bfloat16)
+            iters = 10 if ops < 2e11 else 4
+            ms = cuda_ms(lambda: dconv.dconv_cuda(x, w, b, **kw), iters)
+            plain_ms = cuda_ms(lambda: dconv.dconv_plain(x, w, b, **kw), iters)
+            lib, stream = dconv._library(), torch.cuda.current_stream().cuda_stream
+            x_copy_ms = cuda_ms(lambda: dconv.channels_last(x, lib, stream), iters)
+            x_copy_torch_ms = cuda_ms(lambda: x.permute(0, 2, 3, 4, 1).contiguous(), iters)
+            torch.backends.cudnn.benchmark = True
+            try:
+                lib = lambda: F.conv3d(x, w, b, stride=(st, 1, 1), padding=(pt, pad, pad))
+                library_ms = cuda_ms(lib, iters)
+            finally:
+                torch.backends.cudnn.benchmark = bench
+            rec.update({"ops": ops, "bytes": nbytes, "ms": ms, "x_copy_ms": x_copy_ms,
+                        "x_copy_torch_ms": x_copy_torch_ms,
+                        "plain_ms": plain_ms, "library": "F.conv3d bf16, cudnn.benchmark",
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "achieved_tflops": ops / ms / 1e9,
+                        "roofline_pct": 100.0 * bound_ms / ms})
+            if case == "parity_conv3":
+                row = {"name": "dconv", "route": "cuda", "source": "vinet_tpu_torch/csrc/dconv.cu",
+                       "replaces": None, "case": case, "err_over_tol": err,
+                       **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")}}
+        emit(rec)
+        del x, w, b, got
+        torch.cuda.empty_cache()
+    return row
+
+
 def profile_device(torch, fn) -> dict:
     """Where the device time of one fn() goes, by kernel, from torch.profiler:
     device time against wall time, each hand-written kernel's time
@@ -688,17 +835,18 @@ def phase_model(torch) -> None:
 
 
 def _launch_counts() -> dict:
-    from vinet_tpu_torch.ops import int8_mm, saliency_head, tconv
+    from vinet_tpu_torch.ops import dconv, int8_mm, saliency_head, tconv
 
     return {"saliency_head": saliency_head.launches,
             "saliency_head_up2x": saliency_head.launches_up2x, "int8_mm": int8_mm.launches,
-            "tconv": tconv.launches}
+            "tconv": tconv.launches, "dconv": dconv.launches}
 
 
 def _reset_launch_counts() -> None:
-    from vinet_tpu_torch.ops import int8_mm, saliency_head, tconv
+    from vinet_tpu_torch.ops import dconv, int8_mm, saliency_head, tconv
 
     saliency_head.launches = saliency_head.launches_up2x = int8_mm.launches = tconv.launches = 0
+    dconv.launches = 0
 
 
 def _map_cc(torch, a, b) -> tuple:
@@ -1110,15 +1258,22 @@ def phase_live(torch) -> dict:
     live.reset()
     torch.cuda.synchronize()
     _reset_launch_counts()
-    feed_ms, lags = [], []
+    feed_ms, lags, maps16 = [], [], {}
     t0 = time.perf_counter()
     for lo in range(0, n, micro):
         t1 = time.perf_counter()
-        for i, _ in live.feed(frames[lo: lo + micro]):
+        for i, m in live.feed(frames[lo: lo + micro]):
             lags.append(lo + micro - 1 - i)  # frames that arrived after frame i
+            maps16[i] = m
         feed_ms.append((time.perf_counter() - t1) * 1e3)
-    n_flushed = len(list(live.flush()))
+    flushed = dict(live.flush())
+    n_flushed = len(flushed)
     seconds = time.perf_counter() - t0
+    maps16.update(flushed)
+    # bf16 (the decoder convs on dconv, its gathered and sliced inputs)
+    # against the f32 live maps over the same interior
+    e16 = np.stack([np.abs(maps16[i].astype(np.float32) - live_maps[i])
+                    for i in range(96, n - 70)])
     launches = _launch_counts()
     steady = lags[31:]  # after the warm-up pass's burst
     with torch.inference_mode():
@@ -1145,10 +1300,16 @@ def phase_live(torch) -> dict:
            "f32_interior_vs_chunked_max_abs_err": max(d),
            "f32_interior_vs_chunked_median_abs_err": float(np.median(d)),
            "f32_warmup_vs_chunked_max_abs_err": warm,
-           "tol": [LIVE_MAX_TOL, LIVE_MEDIAN_TOL]}
+           "tol": [LIVE_MAX_TOL, LIVE_MEDIAN_TOL],
+           "bf16_vs_f32_interior_max_abs_err": float(e16.max()),
+           "bf16_vs_f32_interior_mean_abs_err": float(e16.mean()),
+           "bf16_tol": [BF16_MAX_TOL, BF16_MEAN_TOL]}
     emit(rec)
     check(max(d) < LIVE_MAX_TOL and float(np.median(d)) < LIVE_MEDIAN_TOL and warm < 1e-5,
           f"live vs chunked interior: max {max(d)}, median {np.median(d)}, warm-up {warm}")
+    check(sorted(maps16) == list(range(n)) and float(e16.max()) <= BF16_MAX_TOL
+          and float(e16.mean()) <= BF16_MEAN_TOL,
+          f"live bf16 vs f32 interior: max {e16.max()}, mean {e16.mean()}")
     _require_head(launches, "the live path")
     return rec
 
@@ -1442,6 +1603,7 @@ def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
     check(grads_ok, "a parameter has no gradient or a gradient that is not finite")
     check(bn_moved == len(bn0), f"{len(bn0) - bn_moved} BN statistics did not move")
     check(step_launches["saliency_head"] == 0, f"the train steps launched the head: {step_launches}")
+    check(step_launches["dconv"] == 0, f"the train steps launched dconv: {step_launches}")
     _require_head(eval_launches, "the eval step")
     check(all(guard.values()), f"autograd guard: {guard}")
     check(cpu_loss_err <= TRAIN_CPU_LOSS_TOL and cpu_l2 <= TRAIN_CPU_GRAD_L2_TOL,
@@ -2701,7 +2863,8 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    rows = {"saliency_head": phase_head_kernel(torch), **phase_gemm_kernels(torch)}
+    rows = {"saliency_head": phase_head_kernel(torch), **phase_gemm_kernels(torch),
+            "dconv": phase_dconv(torch)}
     torch.cuda.empty_cache()
     phase_model(torch)
     int8_launches = phase_int8_model(torch)
@@ -2733,10 +2896,12 @@ def main() -> int:
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():
-        row["launches"] = (cli_launches if name == "saliency_head" else int8_launches)[name]
+        bf16_path = name in ("saliency_head", "dconv")
+        row["launches"] = (cli_launches if bf16_path else int8_launches)[name]
     rows["saliency_head"]["launches_up2x"] = cli_launches["saliency_head_up2x"]
     rows["saliency_head"]["launches_by_path"] = {p: c["saliency_head_up2x"]
                                                  for p, c in paths.items()}
+    rows["dconv"]["launches_by_path"] = {p: c.get("dconv") for p, c in paths.items()}
     emit({"kernels": [rows[name] for name in KERNELS]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from vinet_tpu_torch.ops import int8_mm, quant, saliency_head, tconv
+from vinet_tpu_torch.ops import dconv, int8_mm, quant, saliency_head, tconv
 
 torch.set_num_threads(2)
 
@@ -385,6 +385,77 @@ def test_tconv_kernel_matches_plain_on_card(cuda, dtype, t_pad, m, c, kt, co, st
 
 
 
+# (x, w, stride_t, pad_t, padding, bias): the decoder's (kt, 3, 3) convs at
+# the main paths' shapes, bf16 at 224 x 384 (chip_smoke.py's DCONV_CASES)
+DCONV_SHAPES = [
+    ((16, 1024, 4, 7, 12), (832, 1024, 1, 3, 3), 1, 0, 1, False),  # parity conv1, batch 16
+    ((16, 832, 12, 14, 24), (480, 832, 3, 3, 3), 3, 0, 1, False),  # conv2
+    ((16, 480, 20, 28, 48), (192, 480, 5, 3, 3), 5, 0, 1, False),  # conv3
+    ((16, 192, 20, 56, 96), (64, 192, 5, 3, 3), 5, 0, 1, False),  # conv4
+    ((24, 480, 12, 28, 48), (192, 480, 5, 3, 3), 1, 0, 1, False),  # live c3y, 12 streams x 8 new
+    ((192, 480, 4, 16, 26), (768, 480, 4, 3, 3), 1, 0, 0, False),  # conv3's folded taps
+    ((3, 64, 5, 7, 9), (37, 64, 3, 3, 3), 2, 1, 1, True),  # ragged M (567) and N, a bias
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xs,ws,stride_t,pad_t,padding,bias", DCONV_SHAPES)
+def test_dconv_kernel_matches_plain_on_card(cuda, xs, ws, stride_t, pad_t, padding, bias):
+    """The kernel against its plain version in bf16 (cuDNN's F.conv3d)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(xs, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(ws, generator=g, device=cuda) / (ws[1] * ws[2] * 9) ** 0.5)
+    w = w.to(torch.bfloat16)
+    b = torch.randn(ws[0], generator=g, device=cuda).to(torch.bfloat16) if bias else None
+    _assert_dconv_matches_plain(x, w, b, stride_t=stride_t, pad_t=pad_t, padding=padding)
+
+
+def _assert_dconv_matches_plain(x, w, b=None, **kw):
+    """Both versions sum the same bf16 products in f32 and round to bf16:
+    the kernel once, after its bias; cuDNN once before a bias and again
+    after it. So they differ by at most a bf16 step (2^-7) of the value and
+    of the value before the bias, plus the f32 sums' order, far below 1e-3
+    of the largest output."""
+    before = dconv.launches
+    got = dconv.dconv(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert dconv.launches == before + 1
+    want = dconv.dconv_plain(x, w, b, **kw)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    want = want.float()
+    unbiased = want if b is None else want - b.float()[:, None, None, None]
+    tol = 2.0 ** -7 * (want.abs() + unbiased.abs()) + 1e-3 * float(want.abs().max())
+    err = (got.float() - want).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.gpu
+def test_dconv_kernel_reads_strided_inputs_on_card(cuda):
+    """What the live decode hands the kernel: x with T outermost (a gather's
+    layout), a slice of it along T, and weights sliced along kt (a storage
+    offset, rows not 16-byte aligned)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    base = torch.randn((2, 24, 64, 14, 24), generator=g, device=cuda).to(torch.bfloat16)
+    x = base.permute(1, 2, 0, 3, 4)  # (24, 64, 2, 14, 24), T outermost in memory
+    w = (torch.randn((40, 64, 5, 3, 3), generator=g, device=cuda) / 24.0).to(torch.bfloat16)
+    _assert_dconv_matches_plain(x, w[:, :, 1:3])
+    _assert_dconv_matches_plain(x.contiguous()[:, :, 1:2], w[:, :, 4:5])
+    gathered = base.reshape(4, 12, 64, 14, 24).transpose(1, 2)  # (4, 64, 12, 14, 24), T outside C
+    _assert_dconv_matches_plain(gathered[:, :, 3:8], w, stride_t=2)
+
+
+@pytest.mark.gpu
+def test_dconv_kernel_takes_a_weight_written_in_place_on_card(cuda):
+    """The kernel's K-major weight is kept between calls; a write to the
+    weight through any of its views makes it anew."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 64, 4, 9, 11), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((24, 64, 5, 3, 3), generator=g, device=cuda) / 24.0).to(torch.bfloat16)
+    for _ in range(2):
+        _assert_dconv_matches_plain(x, w[:, :, 1:4])
+        w[:, :, 2].mul_(-3)
+
+
 # (kernel, stride, padding, Cin, Cout): every conv kind of the int8 model, as
 # in tests/torch_port_util.py, which this file does not import so that it
 # runs alone where JAX is absent
@@ -491,6 +562,32 @@ def test_streaming_predictor_on_card_matches_the_cpu(cuda):
     assert err < 2e-3, err
 
 
+@pytest.mark.gpu
+def test_streaming_predictor_bf16_on_card_takes_dconv(cuda, monkeypatch):
+    """--streaming in bf16 (64 frames of 64 x 64, seeded random weights):
+    every decoder conv through the kernel (launches > 0), the maps within
+    0.02 of the same run with the decoder's convs on cuDNN's F.conv3d (two
+    roundings of one bf16 conv differ by a bf16 step; a few such steps
+    through four convs and the head's sigmoid)."""
+    import copy
+
+    from vinet_tpu_torch.inference import StreamingPredictor
+    from vinet_tpu_torch.models import ViNet
+
+    torch.manual_seed(0)
+    model = ViNet(3, 32)
+    frames = np.random.default_rng(7).integers(0, 256, (64, 64, 64, 3), dtype=np.uint8)
+    before = dconv.launches
+    card = dict(StreamingPredictor(copy.deepcopy(model), chunk=64, batch=8,
+                                   device=cuda).predict_video(frames))
+    assert dconv.launches > before
+    monkeypatch.setattr(dconv, "routes", lambda *a: False)
+    cudnn = dict(StreamingPredictor(model, chunk=64, batch=8, device=cuda).predict_video(frames))
+    assert sorted(card) == sorted(cudnn) == list(range(64))
+    err = max(float(np.abs(card[i] - cudnn[i]).max()) for i in range(64))
+    assert err < 0.02, err
+
+
 def _grad_entry_calls(device):
     """Each CUDA entry on inputs of which one requires grad."""
     z, w6, b6, w7, b7 = (None if t is None else t.to(device) for t in _head_args(1, 2, 8, 8, True))
@@ -498,22 +595,28 @@ def _grad_entry_calls(device):
     a, b = (t.to(device) for t in _operands(torch.bfloat16, [(16, 32), (32, 16)]))
     x, w = (t.to(device) for t in _operands(torch.bfloat16, [(4, 16, 32), (3, 32, 16)]))
     w.requires_grad_()
+    xd, wd = (t.to(device) for t in _operands(torch.bfloat16, [(1, 8, 3, 4, 5), (4, 8, 3, 3, 3)]))
+    wd.requires_grad_()
     return {"saliency_head_cuda": lambda: saliency_head.saliency_head_cuda(z, w6, b6, w7, b7),
             "saliency_head_up2x_cuda": lambda: saliency_head.saliency_head_up2x_cuda(
                 z, w6, b6, w7, b7),
             "int8_mm_cuda": lambda: int8_mm.int8_mm_cuda(a.requires_grad_(), b),
-            "tconv_cuda": lambda: tconv.tconv_cuda(x, w, 1)}
+            "tconv_cuda": lambda: tconv.tconv_cuda(x, w, 1),
+            "dconv_cuda": lambda: dconv.dconv_cuda(xd, wd)}
 
 
 def _assert_refuses_autograd(entry, call):
-    before = (saliency_head.launches, int8_mm.launches, tconv.launches)
+    before = (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches)
     with pytest.raises(RuntimeError, match=f"{entry} has no backward"):
         call()
-    assert (saliency_head.launches, int8_mm.launches, tconv.launches) == before
+    assert (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches) == before
 
 
-@pytest.mark.parametrize("entry", ["saliency_head_cuda", "saliency_head_up2x_cuda",
-                                   "int8_mm_cuda", "tconv_cuda"])
+CUDA_ENTRIES = ["saliency_head_cuda", "saliency_head_up2x_cuda", "int8_mm_cuda", "tconv_cuda",
+                "dconv_cuda"]
+
+
+@pytest.mark.parametrize("entry", CUDA_ENTRIES)
 def test_cuda_entries_refuse_autograd_before_anything_else(entry):
     """The kernels write through ctypes and record no backward, so a graph
     through them would be cut without a word: each entry raises first."""
@@ -521,8 +624,7 @@ def test_cuda_entries_refuse_autograd_before_anything_else(entry):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("entry", ["saliency_head_cuda", "saliency_head_up2x_cuda",
-                                   "int8_mm_cuda", "tconv_cuda"])
+@pytest.mark.parametrize("entry", CUDA_ENTRIES)
 def test_cuda_entries_refuse_autograd_on_card(cuda, entry):
     _assert_refuses_autograd(entry, _grad_entry_calls(cuda)[entry])
     with torch.no_grad():  # the same inputs without a graph launch as before

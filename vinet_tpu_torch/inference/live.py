@@ -38,6 +38,7 @@ from vinet_tpu_torch.data.audio import MAX_AUDIO_WIN, windowed_excerpt
 from vinet_tpu_torch.data.pipeline import device_preprocess
 from vinet_tpu_torch.inference.streaming import (MAXP3_DENSE, MAXT4_DENSE, AVStreamingPredictor,
                                                  StreamingPredictor, _split_time, valid_tconv)
+from vinet_tpu_torch.models.decoder import run_stage
 from vinet_tpu_torch.models.layers import BasicConv3d, SepConv3d
 from vinet_tpu_torch.models.s3d import InceptionBlock
 from vinet_tpu_torch.utils import trace
@@ -220,7 +221,7 @@ class LiveStreamingPredictor(StreamingPredictor):
         buffered timeline positions and the new ones (read before the
         shift)."""
         dec = self.visual.decoder
-        out = {"c1u": dec.convtsp1(news["y0"])} if self.dense_conv1 else {}
+        out = {"c1u": run_stage(dec.convtsp1, news["y0"])} if self.dense_conv1 else {}
         for key, src, conv in (("c2y", "y1", dec.convtsp2[0]), ("c3y", "y2", dec.convtsp3[0]),
                                ("c4y", "y3", dec.convtsp4[0])):
             kt = conv.kernel_size[0]

@@ -44,7 +44,8 @@ import torch.nn.functional as F
 from vinet_tpu_torch.data.pipeline import device_preprocess
 from vinet_tpu_torch.device import resolve_device
 from vinet_tpu_torch.inference.engine import BLUR_KSIZE, FETCH_EVERY, prepared_copy
-from vinet_tpu_torch.models.decoder import DECODER_PLANS
+from vinet_tpu_torch.models.decoder import DECODER_PLANS, run_stage
+from vinet_tpu_torch.ops import dconv
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
 from vinet_tpu_torch.ops.upsample import upsample2x_hw
@@ -196,8 +197,10 @@ def gather_windows(timelines, starts: torch.Tensor, clip_size: int = 32) -> list
 
 
 def valid_tconv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(kt, 3, 3) conv of x with weight w, VALID in T, spatial padding 1."""
-    return F.conv3d(x, w, padding=(0, 1, 1))
+    """(kt, 3, 3) conv of x with weight w, VALID in T, spatial padding 1,
+    through ``ops/dconv.py``'s route (the hand-written kernel for bf16 on
+    the card)."""
+    return dconv.conv3d(x, w, padding=1)
 
 
 def dense_decoder_front(decoder, timelines, *, with_conv1: bool = True):
@@ -210,7 +213,7 @@ def dense_decoder_front(decoder, timelines, *, with_conv1: bool = True):
     VALID (3,3,3) conv of y1t, c3y and c4y = VALID (5,3,3) convs of y2t and
     y3t (pre-ReLU)."""
     y0t, y1t, y2t, y3t = timelines
-    return (decoder.convtsp1(y0t) if with_conv1 else None,
+    return (run_stage(decoder.convtsp1, y0t) if with_conv1 else None,
             valid_tconv(y1t, decoder.convtsp2[0].weight),
             valid_tconv(y2t, decoder.convtsp3[0].weight),
             valid_tconv(y3t, decoder.convtsp4[0].weight))
@@ -253,7 +256,10 @@ def decode_windows_v2(decoder, timelines, dense, starts: torch.Tensor,
     w3 = decoder.convtsp3[0].weight
     w4 = decoder.convtsp4[0].weight
 
-    z1 = _gather(c1u, 8, p0, s3, 4) if y0_fused is None else decoder.convtsp1(y0_fused)
+    if y0_fused is None:
+        z1 = _gather(c1u, 8, p0, s3, 4)
+    else:
+        z1 = run_stage(decoder.convtsp1, y0_fused)
     y1h = _gather(y1t, 4, pb, s2, 2)
     t0 = valid_tconv(z1[:, :, 0:3], w2[:, :, 0:3])
     t1 = valid_tconv(z1[:, :, 3:4], w2[:, :, 0:1]) + valid_tconv(y1h, w2[:, :, 1:3])

@@ -16,6 +16,12 @@ identity (kt 1, no bias): z5 = ReLU(conv5) >= 0 and the upsample's weights
 are non-negative, so ReLU(I·up(z5)) = up(z5) and the kernel computes
 sigmoid(conv7(up(z5))) exactly; their z5 has T 1.
 
+conv1-conv3 (in both modes) and, in eval mode, conv4 and conv5's folded
+conv take ``ops/dconv.py``'s route: the hand-written bf16 kernel on the card
+for a bf16 tensor outside autograd, ``F.conv3d`` otherwise (f32, or an
+autograd graph, as in a train step); on the CPU its plain version, which is
+``F.conv3d``.
+
 In training mode (``self.training``) the decoder runs the JAX package's own
 ``train=True`` graph instead (``vinet_tpu/models/decoder.py:141-161``):
 conv4 -> ReLU -> up, conv5 -> ReLU -> up, [conv6 -> ReLU], conv7 -> sigmoid,
@@ -31,6 +37,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from vinet_tpu_torch.ops import dconv
 from vinet_tpu_torch.ops import saliency_head as head
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
 from vinet_tpu_torch.ops.upsample import upsample2x_hw
@@ -73,6 +80,12 @@ def decoder_plan(num_hier: int = 3, clip_size: int = 32) -> DecoderPlan:
     return DECODER_PLANS[key]
 
 
+def run_stage(stage: nn.Sequential, z: torch.Tensor) -> torch.Tensor:
+    """conv -> ReLU -> 2x upsample of stage i (``convtsp1`` ... ``convtsp3``),
+    the conv through ``dconv.conv_module``'s route."""
+    return stage[2](stage[1](dconv.conv_module(stage[0], z)))
+
+
 class Upsample2x(nn.Module):
     def forward(self, x):
         return upsample2x_hw(x)
@@ -106,18 +119,18 @@ class Decoder(nn.Module):
         plain stage graph in training mode."""
         y0, y1, y2, y3 = pyramid
         skips = self.plan.skips
-        z = self.convtsp1(y0)
+        z = run_stage(self.convtsp1, y0)
         if 1 in skips:
             z = torch.cat([z, y1.to(z.dtype)], dim=2)
-        z = self.convtsp2(z)
+        z = run_stage(self.convtsp2, z)
         if 2 in skips:
             z = torch.cat([z, y2.to(z.dtype)], dim=2)
-        z = self.convtsp3(z)
+        z = run_stage(self.convtsp3, z)
         if 3 in skips:
             z = torch.cat([z, y3.to(z.dtype)], dim=2)
         if self.training:
             return self.convtsp4(z)[:, 0, 0]  # (B, 1, 1, H, W) -> (B, H, W)
-        return self.tail(self.convtsp4[:2](z))  # conv4, relu
+        return self.tail(torch.relu(dconv.conv_module(self.convtsp4[0], z)))  # conv4, relu
 
     def tail(self, z4):
         """relu(conv4) (B, 64, T, h, w) -> (B, 4h, 4w) maps in z4's dtype:

@@ -16,9 +16,10 @@ row or column, the folded pass read the upsample's extrapolated sample, and
 1-D corrections over the border rows and columns subtract that in f32.
 
 Port weights are ``(Cout, Cin, kt, 3, 3)``. The folded conv runs in x's dtype
-with its bias folded in (cuDNN accumulates a bf16 convolution in f32 and
-rounds its output once); the corrections are f32 and land on the 1-pixel
-border strips of the coarse result, which are rounded again.
+with its bias folded in, through ``ops/dconv.py``'s route (in bf16 on the
+card the hand-written kernel, which accumulates in f32 and rounds its output
+once); the corrections are f32 and land on the 1-pixel border strips of the
+coarse result, which are rounded again.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from vinet_tpu_torch.ops import dconv
 
 # A[p, m, d]: coefficient of fine tap d (at u[2i+p+d-1]) on coarse input
 # a[i+m-1] for output phase p (interior formula).
@@ -154,8 +157,7 @@ class FoldedConvUp2x:
         c = self.cout
         b4 = None if self.b4 is None else self.b4.to(x.dtype)
         ap = F.pad(x, (1, 1, 1, 1, 0, 0), mode="replicate")
-        z = F.conv3d(ap, self.wf.to(x.dtype), b4, stride=(stride_t, 1, 1),
-                     padding=(pad_t, 0, 0))
+        z = dconv.conv3d(ap, self.wf.to(x.dtype), b4, stride_t=stride_t, pad_t=pad_t, padding=0)
         b, _, tt, h, wd = z.shape
 
         # Border corrections on the coarse phase-major z: fine row 0 is (h 0,
