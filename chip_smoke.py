@@ -25,7 +25,11 @@ fails. Phases, each printing one JSON line:
    every DCONV_CASES shape against the f32 sum of its bf16 products, and at
    the parity and live paths' shapes its time with x's channels-last copy
    beside its bound, its plain version (cuDNN's heuristics) and
-   cuDNN's benchmark-mode choice;
+   cuDNN's benchmark-mode choice. The index-free pool kernel (``maxpool3d``)
+   at every MAXPOOL_CASES shape (parity's fourteen S3D pools, the live
+   advance's, the AV fusion pool) against ``F.max_pool3d`` bit for bit in
+   bf16 and f32, and in bf16 its time beside its bound and
+   ``F.max_pool3d``'s (``library_ms``), inputs cycled past the L2;
 4. model: the full-width ViNet(3, 32) with the committed fixture weights
    (``artifacts/streamft_fixture.npz``), BatchNorm folded, on a window batch
    of 16 clips of 32 x 224 x 384 in bf16, against f32 on the card, and f32 on
@@ -139,9 +143,9 @@ fails. Phases, each printing one JSON line:
    at 32 x 32, forward ms, clips/s and peak memory, a profile of one B 8
    forward and each ConvTranspose3d alone (its time by CUDA events and
    cuDNN's kernels beside its bound). TASEDv2 launches no kernel of the
-   repo (its transposed convolutions are XLA convolutions in the JAX
-   package, not Pallas kernels), and the phase requires every count to stay
-   0. Phase 11's train CLI also writes its best model as the JAX package's
+   repo but S3D's pools (its transposed convolutions are XLA convolutions in
+   the JAX package, not Pallas kernels), and the phase requires every other
+   count to stay 0. Phase 11's train CLI also writes its best model as the JAX package's
    ``.npz`` trees (``--model_val_path best.npz``), which ``load_weights``
    reads back equal to the checkpointed model.
 
@@ -169,7 +173,7 @@ import tempfile
 import time
 
 FIXTURE = os.path.join("artifacts", "streamft_fixture.npz")
-KERNELS = ("saliency_head", "int8_mm", "tconv", "dconv")
+KERNELS = ("saliency_head", "int8_mm", "tconv", "dconv", "maxpool3d")
 # H100 SXM data sheet: HBM rate, and dense peaks by input type (f32 on the
 # CUDA cores; bf16 and int8 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -271,7 +275,10 @@ def phase_build() -> None:
         functions[name] = {fn: {**ptxas.get(fn, {}), **ops.get(fn, {})}
                            for fn in sorted(set(ptxas) | set(ops))}
         sass[name] = {op: sum(c[op] for c in ops.values()) for op in SASS_OPS}
-        if name == "dconv":  # wgmma from a cp.async ring; its transpose has neither
+        if name == "maxpool3d":  # the tiled kernel stages its slices with cp.async
+            for fn, c in ops.items():
+                check("maxpool3d_rows" in fn or c["LDGSTS"] > 0, f"maxpool3d: {fn} lacks LDGSTS: {c}")
+        elif name == "dconv":  # wgmma from a cp.async ring; its transpose has neither
             for fn, c in ops.items():
                 check("channels_last" in fn or (c["HGMMA"] > 0 and c["LDGSTS"] > 0),
                       f"dconv: {fn} lacks HGMMA or LDGSTS: {c}")
@@ -722,6 +729,106 @@ def phase_dconv(torch) -> dict:
     return row
 
 
+# (name, x shape, kernel, stride, padding): every pool of the main paths at
+# 224 x 384, bf16: parity's window batch of 16 (S3D's fourteen, in order),
+# the live path's advance of 16 frames on 12 streams (the segments' inputs
+# with their tails, valid in time) and the AV decode's fusion pool over 12 x
+# 16 windows
+MAXPOOL_CASES = [
+    ("parity_stem", (16, 64, 16, 112, 192), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("parity_maxp2", (16, 192, 16, 56, 96), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("parity_3b", (16, 192, 16, 28, 48), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_3c", (16, 256, 16, 28, 48), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_maxp3", (16, 480, 16, 28, 48), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ("parity_4b", (16, 480, 8, 14, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_4c", (16, 512, 8, 14, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_4d", (16, 512, 8, 14, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_4e", (16, 512, 8, 14, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_4f", (16, 528, 8, 14, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_maxt4", (16, 832, 8, 14, 24), (2, 1, 1), (2, 1, 1), (0, 0, 0)),
+    ("parity_maxp4", (16, 832, 4, 14, 24), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
+    ("parity_5b", (16, 832, 4, 7, 12), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_5c", (16, 832, 4, 7, 12), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("live_stem", (24, 64, 10, 112, 192), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("live_maxp2", (24, 192, 12, 56, 96), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("live_3b", (24, 192, 12, 28, 48), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_3c", (24, 256, 10, 28, 48), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_maxp3", (24, 480, 10, 28, 48), (3, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("live_4b", (48, 480, 14, 14, 24), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_4c", (48, 512, 12, 14, 24), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_4d", (48, 512, 10, 14, 24), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_4e", (48, 512, 8, 14, 24), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_4f", (48, 528, 6, 14, 24), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_maxt4", (48, 832, 6, 14, 24), (2, 1, 1), (1, 1, 1), (0, 0, 0)),
+    ("live_maxp4", (96, 832, 2, 14, 24), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
+    ("live_5b", (96, 832, 6, 7, 12), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_5c", (96, 832, 4, 7, 12), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("av_fusion", (192, 1024, 4, 7, 12), (4, 1, 1), (2, 1, 2), (0, 0, 0)),
+]
+L2_BYTES = 50 * 2**20  # the H100's L2
+
+
+def _cold_ms(torch, fn, x, iters: int) -> float:
+    """cuda_ms of fn over copies of x, cycled, that together exceed the L2
+    twice, so each call reads its input from device memory as in a model."""
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    copies = [x] + [x.clone() for _ in range(min(15, 2 * L2_BYTES // x.nbytes))]
+    it = iter(range(1 << 30))
+    return cuda_ms(lambda: fn(copies[next(it) % len(copies)]), iters)
+
+
+def phase_maxpool(torch) -> dict:
+    """The index-free pool kernel at every MAXPOOL_CASES shape, bf16 and f32,
+    against F.max_pool3d bit for bit (the values of relu(randn), so zeros
+    tie); in bf16 its time (inputs cycled past the L2, as in a model) beside
+    its bound (input and output once each) and F.max_pool3d's
+    (``library_ms``: max_pool3d_with_indices, the route before). Returns the
+    kernels-line row: the parity window batch's fourteen pools summed."""
+    import torch.nn.functional as F
+
+    from vinet_tpu_torch.ops import maxpool
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    totals = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for i, (case, xs, k, st, pad) in enumerate(MAXPOOL_CASES):
+        g = torch.Generator(device="cuda").manual_seed(i)
+        x32 = torch.relu(torch.randn(xs, generator=g, device="cuda"))
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            before = maxpool.launches
+            got = maxpool.max_pool3d_cuda(x, k, st, pad)
+            torch.cuda.synchronize()
+            want = F.max_pool3d(x, k, st, pad)
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            check(maxpool.launches == before + 1 and got.shape == want.shape
+                  and torch.equal(got.view(bits), want.view(bits)),
+                  f"maxpool {case} {dtype}: not F.max_pool3d bit for bit")
+        del x32, want
+        nbytes = 2 * (x.numel() + got.numel())
+        bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+        ms = _cold_ms(torch, lambda v: maxpool.max_pool3d_cuda(v, k, st, pad), x, 20)
+        library_ms = _cold_ms(torch, lambda v: F.max_pool3d(v, k, st, pad), x, 20)
+        warm_ms = None
+        if x.nbytes < L2_BYTES:  # the same input again and again: from the L2
+            warm_ms = cuda_ms(lambda: maxpool.max_pool3d_cuda(x, k, st, pad), 20)
+        rec = {"phase": "maxpool", "case": case, "x": list(x.shape), "kernel": list(k),
+               "stride": list(st), "padding": list(pad), "exact": ["bf16", "f32"],
+               "bytes": nbytes, "ms": ms, "warm_l2_ms": warm_ms, "library": "F.max_pool3d",
+               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "achieved_gb_per_s": nbytes / ms / 1e6, "roofline_pct": 100.0 * bound_ms / ms}
+        emit(rec)
+        if case.startswith("parity"):
+            totals = {key: totals[key] + rec[key] for key in totals}
+        del x, got
+        torch.cuda.empty_cache()
+    emit({"phase": "maxpool_parity_window_batch", "pools": 14, **totals,
+          "roofline_pct": 100.0 * totals["bound_ms"] / totals["ms"]})
+    return {"name": "maxpool3d", "route": "cuda", "source": "vinet_tpu_torch/csrc/maxpool3d.cu",
+            "replaces": None, "case": "parity window batch, 14 pools", **totals,
+            "plain_ms": totals["library_ms"], "bound_by": "bytes"}
+
+
 def profile_device(torch, fn) -> dict:
     """Where the device time of one fn() goes, by kernel, from torch.profiler:
     device time against wall time, each hand-written kernel's time
@@ -835,18 +942,18 @@ def phase_model(torch) -> None:
 
 
 def _launch_counts() -> dict:
-    from vinet_tpu_torch.ops import dconv, int8_mm, saliency_head, tconv
+    from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, saliency_head, tconv
 
     return {"saliency_head": saliency_head.launches,
             "saliency_head_up2x": saliency_head.launches_up2x, "int8_mm": int8_mm.launches,
-            "tconv": tconv.launches, "dconv": dconv.launches}
+            "tconv": tconv.launches, "dconv": dconv.launches, "maxpool3d": maxpool.launches}
 
 
 def _reset_launch_counts() -> None:
-    from vinet_tpu_torch.ops import dconv, int8_mm, saliency_head, tconv
+    from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, saliency_head, tconv
 
     saliency_head.launches = saliency_head.launches_up2x = int8_mm.launches = tconv.launches = 0
-    dconv.launches = 0
+    dconv.launches = maxpool.launches = 0
 
 
 def _map_cc(torch, a, b) -> tuple:
@@ -2595,7 +2702,9 @@ def phase_tased(torch, card: str) -> dict:
           f"TASEDv2 bf16 vs f32: {e}")
     check(rec["card_f32_vs_cpu_f32"]["max_abs_err"] < CPU_TOL,
           f"TASEDv2 card vs CPU: {rec['card_f32_vs_cpu_f32']}")
-    check(all(v == 0 for v in launches.values()), f"TASEDv2 launched a kernel: {launches}")
+    check(launches["maxpool3d"] > 0 and all(v == 0 for k, v in launches.items()
+                                            if k != "maxpool3d"),
+          f"TASEDv2 launched a kernel other than S3D's pools: {launches}")
     return launches
 
 
@@ -2864,7 +2973,7 @@ def main() -> int:
     card = phase_card()
     phase_build()
     rows = {"saliency_head": phase_head_kernel(torch), **phase_gemm_kernels(torch),
-            "dconv": phase_dconv(torch)}
+            "dconv": phase_dconv(torch), "maxpool3d": phase_maxpool(torch)}
     torch.cuda.empty_cache()
     phase_model(torch)
     int8_launches = phase_int8_model(torch)
@@ -2896,12 +3005,13 @@ def main() -> int:
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():
-        bf16_path = name in ("saliency_head", "dconv")
+        bf16_path = name in ("saliency_head", "dconv", "maxpool3d")
         row["launches"] = (cli_launches if bf16_path else int8_launches)[name]
     rows["saliency_head"]["launches_up2x"] = cli_launches["saliency_head_up2x"]
     rows["saliency_head"]["launches_by_path"] = {p: c["saliency_head_up2x"]
                                                  for p, c in paths.items()}
     rows["dconv"]["launches_by_path"] = {p: c.get("dconv") for p, c in paths.items()}
+    rows["maxpool3d"]["launches_by_path"] = {p: c.get("maxpool3d") for p, c in paths.items()}
     emit({"kernels": [rows[name] for name in KERNELS]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

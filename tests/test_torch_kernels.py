@@ -12,8 +12,9 @@ the wrappers' input validation and device rule on the CPU.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from vinet_tpu_torch.ops import dconv, int8_mm, quant, saliency_head, tconv
+from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, quant, saliency_head, tconv
 
 torch.set_num_threads(2)
 
@@ -456,6 +457,152 @@ def test_dconv_kernel_takes_a_weight_written_in_place_on_card(cuda):
         w[:, :, 2].mul_(-3)
 
 
+# (name, x shape, kernel, stride, padding): every pool of the main paths at
+# 224 x 384: parity's window batch of 16 clips (S3D's fourteen), the live
+# path's advance of 16 frames on 12 streams (segment inputs with their
+# tails, the valid-in-time forms) and the AV decode's fusion pool over 12 x 16
+# windows (chip_smoke.py's MAXPOOL_CASES)
+MAXPOOL_SHAPES = [
+    ("parity_stem", (16, 64, 16, 112, 192), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("parity_maxp2", (16, 192, 16, 56, 96), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("parity_3b", (16, 192, 16, 28, 48), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_3c", (16, 256, 16, 28, 48), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_maxp3", (16, 480, 16, 28, 48), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ("parity_4b", (16, 480, 8, 14, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_4c", (16, 512, 8, 14, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_4f", (16, 528, 8, 14, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("parity_maxt4", (16, 832, 8, 14, 24), (2, 1, 1), (2, 1, 1), (0, 0, 0)),
+    ("parity_maxp4", (16, 832, 4, 14, 24), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
+    ("parity_5b", (16, 832, 4, 7, 12), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("live_stem", (24, 64, 10, 112, 192), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("live_maxp2", (24, 192, 12, 56, 96), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("live_3b", (24, 192, 12, 28, 48), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_3c", (24, 256, 10, 28, 48), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_maxp3", (24, 480, 10, 28, 48), (3, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("live_4b", (48, 480, 14, 14, 24), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_4f", (48, 528, 6, 14, 24), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_maxt4", (48, 832, 6, 14, 24), (2, 1, 1), (1, 1, 1), (0, 0, 0)),
+    ("live_maxp4", (96, 832, 2, 14, 24), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
+    ("live_5b", (96, 832, 6, 7, 12), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("live_5c", (96, 832, 4, 7, 12), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
+    ("av_fusion", (192, 1024, 4, 7, 12), (4, 1, 1), (2, 1, 2), (0, 0, 0)),
+]
+# ragged: odd H and W, W not a multiple of 8 or 4 or 2 elements, T shorter
+# than the window's reach, strides above the window, every spatial form of
+# the kernel's instances and one that takes its generic instance; in bf16 a
+# W that is a multiple of 4 takes the row kernel (W_out not always)
+MAXPOOL_RAGGED = [
+    ((3, 5, 7, 13, 40), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ((2, 3, 5, 9, 24), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ((2, 7, 5, 9, 16), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ((2, 3, 5, 11, 8), (3, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ((2, 3, 9, 6, 24), (2, 1, 1), (2, 1, 1), (0, 0, 0)),
+    ((3, 5, 7, 13, 17), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ((3, 5, 7, 13, 17), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ((2, 7, 5, 9, 14), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ((2, 3, 9, 6, 12), (2, 1, 1), (2, 1, 1), (0, 0, 0)),
+    ((2, 3, 4, 11, 10), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
+    ((2, 9, 5, 3, 7), (4, 1, 1), (2, 1, 2), (0, 0, 0)),
+    ((1, 4, 7, 8, 9), (3, 2, 4), (3, 1, 3), (1, 1, 2)),
+    ((2, 3, 2, 1, 1), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ((1, 2, 3, 40, 301), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _assert_pool_matches(x, kernel, stride, padding):
+    """The kernel against F.max_pool3d bit for bit: the same comparisons in
+    the same order, so the same value, the sign of a zero and a NaN's bits."""
+    before = maxpool.launches
+    got = maxpool.max_pool3d_cuda(x, kernel, stride, padding)
+    torch.cuda.synchronize()
+    assert maxpool.launches == before + 1
+    want = F.max_pool3d(x, kernel, stride, padding)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,shape,kernel,stride,padding", MAXPOOL_SHAPES,
+                         ids=[c[0] for c in MAXPOOL_SHAPES])
+def test_maxpool_kernel_equals_f_max_pool3d_on_card(cuda, name, shape, kernel, stride, padding,
+                                                     dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.relu(torch.randn(shape, generator=g, device=cuda)).to(dtype)  # activations' zeros
+    _assert_pool_matches(x, kernel, stride, padding)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,kernel,stride,padding", MAXPOOL_RAGGED)
+def test_maxpool_kernel_ragged_shapes_on_card(cuda, shape, kernel, stride, padding, dtype):
+    """Ragged shapes; then NaN, -0.0 and infinities among the values; then x
+    one element past an aligned address (element loads, narrow stores)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    _assert_pool_matches(x, kernel, stride, padding)
+    flat = x.view(-1)
+    for v in (float("nan"), -0.0, 0.0, float("inf"), float("-inf")):
+        flat[torch.randint(0, flat.numel(), (max(1, flat.numel() // 40),), generator=g,
+                           device=cuda)] = v
+    _assert_pool_matches(x, kernel, stride, padding)
+    odd = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(shape)
+    odd.copy_(x)
+    _assert_pool_matches(odd, kernel, stride, padding)
+
+
+@pytest.mark.gpu
+def test_maxpool_route_on_card(cuda):
+    """A CUDA tensor outside autograd launches the kernel; one that autograd
+    records keeps F.max_pool3d and gets its gradient; f16 keeps F.max_pool3d."""
+    x = torch.randn((2, 3, 5, 9, 11), device=cuda)
+    before = maxpool.launches
+    with torch.no_grad():
+        got = maxpool.MaxPool3d(3, 2, 1)(x)
+    assert maxpool.launches == before + 1 and torch.equal(got, F.max_pool3d(x, 3, 2, 1))
+    xg = x.clone().requires_grad_()
+    maxpool.MaxPool3d(3, 2, 1)(xg).sum().backward()
+    xf = x.clone().requires_grad_()
+    F.max_pool3d(xf, 3, 2, 1).sum().backward()
+    assert torch.equal(xg.grad, xf.grad)
+    maxpool.max_pool3d(x.half(), 3, 2, 1)
+    assert maxpool.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_parity_window_batch_through_maxpool_gives_the_same_maps_on_card(cuda, monkeypatch):
+    """One parity window batch (16 clips of 32 x 224 x 384, bf16, seeded
+    random weights) through SlidingWindowPredictor.run_batch: S3D's fourteen
+    pools on the kernel give the uint8 maps of the same batch with the kernel
+    switched off, and the decoder's convs launch dconv as often either way."""
+    from vinet_tpu_torch.inference import SlidingWindowPredictor
+    from vinet_tpu_torch.models import ViNet
+
+    torch.manual_seed(0)
+    pred = SlidingWindowPredictor(ViNet(3, 32), batch=16, device=cuda)
+    frames = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (47, 224, 384, 3), dtype=np.uint8)).to(cuda)
+    idx = (torch.arange(16)[:, None] + torch.arange(32)[None]).to(cuda)
+
+    def run():
+        counts = (maxpool.launches, dconv.launches)
+        maps = pred.run_batch(frames, idx, (360, 640), True)
+        torch.cuda.synchronize()
+        return maps, maxpool.launches - counts[0], dconv.launches - counts[1]
+
+    got, pools, convs = run()
+    monkeypatch.setattr(maxpool, "USE_KERNEL", False)
+    want, pools_off, convs_off = run()
+    assert (pools, pools_off) == (14, 0)
+    assert convs == convs_off > 0
+    assert got.dtype == want.dtype == torch.uint8 and got.shape == (16, 360, 640)
+    assert torch.equal(got, want)
+
+
 # (kernel, stride, padding, Cin, Cout): every conv kind of the int8 model, as
 # in tests/torch_port_util.py, which this file does not import so that it
 # runs alone where JAX is absent
@@ -602,18 +749,21 @@ def _grad_entry_calls(device):
                 z, w6, b6, w7, b7),
             "int8_mm_cuda": lambda: int8_mm.int8_mm_cuda(a.requires_grad_(), b),
             "tconv_cuda": lambda: tconv.tconv_cuda(x, w, 1),
-            "dconv_cuda": lambda: dconv.dconv_cuda(xd, wd)}
+            "dconv_cuda": lambda: dconv.dconv_cuda(xd, wd),
+            "max_pool3d_cuda": lambda: maxpool.max_pool3d_cuda(xd.detach().requires_grad_(), 3)}
 
 
 def _assert_refuses_autograd(entry, call):
-    before = (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches)
+    before = (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches,
+              maxpool.launches)
     with pytest.raises(RuntimeError, match=f"{entry} has no backward"):
         call()
-    assert (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches) == before
+    assert (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches,
+            maxpool.launches) == before
 
 
 CUDA_ENTRIES = ["saliency_head_cuda", "saliency_head_up2x_cuda", "int8_mm_cuda", "tconv_cuda",
-                "dconv_cuda"]
+                "dconv_cuda", "max_pool3d_cuda"]
 
 
 @pytest.mark.parametrize("entry", CUDA_ENTRIES)

@@ -41,6 +41,7 @@ from vinet_tpu_torch.inference.streaming import (MAXP3_DENSE, MAXT4_DENSE, AVStr
 from vinet_tpu_torch.models.decoder import run_stage
 from vinet_tpu_torch.models.layers import BasicConv3d, SepConv3d
 from vinet_tpu_torch.models.s3d import InceptionBlock
+from vinet_tpu_torch.ops import maxpool
 from vinet_tpu_torch.utils import trace
 
 
@@ -60,7 +61,7 @@ def _valid_apply(mod: nn.Module, x: torch.Tensor):
                    for v in (mod.kernel_size, mod.stride, mod.padding))
         if not (k[0] == 1 or p[0] or k[0] == 2):
             raise ValueError(f"no valid temporal form for a max pool {k} with padding {p}")
-        return F.max_pool3d(x, k, (1, *s[1:]), (0, *p[1:])), p[0]
+        return maxpool.max_pool3d(x, k, (1, *s[1:]), (0, *p[1:])), p[0]
     if isinstance(mod, BasicConv3d):
         y, r = _valid_apply(mod.conv, x)
         return torch.relu(mod.bn(y)), r

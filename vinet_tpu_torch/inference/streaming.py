@@ -47,6 +47,7 @@ from vinet_tpu_torch.inference.engine import BLUR_KSIZE, FETCH_EVERY, prepared_c
 from vinet_tpu_torch.models.decoder import DECODER_PLANS, run_stage
 from vinet_tpu_torch.ops import dconv
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
+from vinet_tpu_torch.ops.maxpool import MaxPool3d
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
 from vinet_tpu_torch.ops.upsample import upsample2x_hw
 from vinet_tpu_torch.parallel.collectives import all_gather
@@ -83,8 +84,8 @@ def dense_conv_t(conv: torch.nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
 
 
 # the pools of streaming_pyramid that run dense in time (stride 1 in T)
-MAXP3_DENSE = torch.nn.MaxPool3d((3, 3, 3), (1, 2, 2), (1, 1, 1))
-MAXT4_DENSE = torch.nn.MaxPool3d((2, 1, 1), (1, 1, 1), 0)
+MAXP3_DENSE = MaxPool3d((3, 3, 3), (1, 2, 2), (1, 1, 1))
+MAXT4_DENSE = MaxPool3d((2, 1, 1), (1, 1, 1), 0)
 
 
 def streaming_pyramid(backbone, x: torch.Tensor):

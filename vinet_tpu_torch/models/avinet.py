@@ -40,6 +40,7 @@ from torch import nn
 from vinet_tpu_torch.models.soundnet import SoundNet
 from vinet_tpu_torch.models.transformer import TransformerEncoder, no_autocast
 from vinet_tpu_torch.models.vinet import ViNet
+from vinet_tpu_torch.ops.maxpool import MaxPool3d
 
 AUDIO_FEATURES = 3  # SoundNet's output length for a 70 560-sample excerpt
 
@@ -96,7 +97,7 @@ class AViNet(nn.Module):
         self.tokens = math.prod(self.y0_tdhw)
         self.visual_model = ViNet(num_hier, clip_size)
         self.audionet = SoundNet()
-        self.maxpool = nn.MaxPool3d((4, 1, 1), stride=(2, 1, 2))
+        self.maxpool = MaxPool3d((4, 1, 1), stride=(2, 1, 2))
         self.bilinear = Bilinear(pooled_len(*self.y0_tdhw), AUDIO_FEATURES, self.tokens)
         if use_transformer:
             c = transformer_in_channel

@@ -6,6 +6,9 @@ pyramid is
     y2: (B,  480, 16, 28, 48)
     y1: (B,  832,  8, 14, 24)
     y0: (B, 1024,  4,  7, 12)
+
+Every pool is ``ops/maxpool.py::MaxPool3d``: the index-free kernel on the
+card outside autograd, ``F.max_pool3d`` otherwise.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 from torch import nn
 
 from vinet_tpu_torch.models.layers import BasicConv3d, SepConv3d
+from vinet_tpu_torch.ops.maxpool import MaxPool3d
 
 # Inception channel plan: in_ch -> (b0; b1_red->b1; b2_red->b2; pool->b3).
 MIXED_PLAN = {
@@ -38,7 +42,7 @@ class InceptionBlock(nn.Module):
         self.branch0 = nn.Sequential(BasicConv3d(i, b0, 1))
         self.branch1 = nn.Sequential(BasicConv3d(i, b1r, 1), SepConv3d(b1r, b1, 3, 1, 1))
         self.branch2 = nn.Sequential(BasicConv3d(i, b2r, 1), SepConv3d(b2r, b2, 3, 1, 1))
-        self.branch3 = nn.Sequential(nn.MaxPool3d(3, 1, 1), BasicConv3d(i, b3, 1))
+        self.branch3 = nn.Sequential(MaxPool3d(3, 1, 1), BasicConv3d(i, b3, 1))
 
     def forward(self, x):
         return torch.cat([self.branch0(x), self.branch1(x), self.branch2(x),
@@ -53,16 +57,16 @@ class S3DBackbone(nn.Module):
         super().__init__()
         self.base1 = nn.Sequential(
             SepConv3d(3, 64, 7, 2, 3),
-            nn.MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+            MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
             BasicConv3d(64, 64, 1),
             SepConv3d(64, 192, 3, 1, 1),
         )
-        self.maxp2 = nn.MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
+        self.maxp2 = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
         self.base2 = nn.Sequential(InceptionBlock("3b"), InceptionBlock("3c"))
-        self.maxp3 = nn.MaxPool3d(3, 2, 1)
+        self.maxp3 = MaxPool3d(3, 2, 1)
         self.base3 = nn.Sequential(*(InceptionBlock(n) for n in ("4b", "4c", "4d", "4e", "4f")))
-        self.maxt4 = nn.MaxPool3d((2, 1, 1), (2, 1, 1))
-        self.maxp4 = nn.MaxPool3d((1, 2, 2), (1, 2, 2))
+        self.maxt4 = MaxPool3d((2, 1, 1), (2, 1, 1))
+        self.maxp4 = MaxPool3d((1, 2, 2), (1, 2, 2))
         self.base4 = nn.Sequential(InceptionBlock("5b"), InceptionBlock("5c"))
 
     def forward(self, x):
