@@ -29,7 +29,14 @@ fails. Phases, each printing one JSON line:
    at every MAXPOOL_CASES shape (parity's fourteen S3D pools, the live
    advance's, the AV fusion pool) against ``F.max_pool3d`` bit for bit in
    bf16 and f32, and in bf16 its time beside its bound and
-   ``F.max_pool3d``'s (``library_ms``), inputs cycled past the L2;
+   ``F.max_pool3d``'s (``library_ms``), inputs cycled past the L2. The
+   stem kernel (``stemconv``: S3D's 3-channel conv_s with its bias and ReLU)
+   at every STEMCONV_CASES shape against the float64 sum and its plain
+   version, at parity's and live's shapes its time beside its bound, its
+   plain version and ``F.conv3d`` alone, and a window batch profiled with
+   its route off and on, the stem inside a ``stem.conv_s`` range (which
+   kernels it owns); ``stemconv`` must launch on the cli, streaming, live
+   and serve paths and never in a train step;
 4. model: the full-width ViNet(3, 32) with the committed fixture weights
    (``artifacts/streamft_fixture.npz``), BatchNorm folded, on a window batch
    of 16 clips of 32 x 224 x 384 in bf16, against f32 on the card, and f32 on
@@ -173,7 +180,7 @@ import tempfile
 import time
 
 FIXTURE = os.path.join("artifacts", "streamft_fixture.npz")
-KERNELS = ("saliency_head", "int8_mm", "tconv", "dconv", "maxpool3d")
+KERNELS = ("saliency_head", "int8_mm", "tconv", "dconv", "maxpool3d", "stemconv")
 # H100 SXM data sheet: HBM rate, and dense peaks by input type (f32 on the
 # CUDA cores; bf16 and int8 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -278,6 +285,10 @@ def phase_build() -> None:
         if name == "maxpool3d":  # the tiled kernel stages its slices with cp.async
             for fn, c in ops.items():
                 check("maxpool3d_rows" in fn or c["LDGSTS"] > 0, f"maxpool3d: {fn} lacks LDGSTS: {c}")
+        elif name == "stemconv":  # mma.sync, ldmatrix; cp.async where x is 16-byte aligned
+            for fn, c in ops.items():
+                check(c["HMMA"] > 0 and c["LDSM"] > 0, f"stemconv: {fn} lacks HMMA or LDSM: {c}")
+                check("kernelILb0E" in fn or c["LDGSTS"] > 0, f"stemconv: {fn} lacks LDGSTS: {c}")
         elif name == "dconv":  # wgmma from a cp.async ring; its transpose has neither
             for fn, c in ops.items():
                 check("channels_last" in fn or (c["HGMMA"] > 0 and c["LDGSTS"] > 0),
@@ -829,6 +840,196 @@ def phase_maxpool(torch) -> dict:
             "plain_ms": totals["library_ms"], "bound_by": "bytes"}
 
 
+# (name, x shape (B, 3, T, H, W)): the stem's spatial convolution on the
+# main paths at 224 x 384 (parity's window batch of 16 clips, the live
+# advance's segment A of 12 streams x (16 + 7) frames) and ragged shapes:
+# H and W odd (element staging and stores), W % 8 == 0 with W_out % 8 != 0
+# (16-byte staging, element stores), one pixel, and tiles cut at both edges
+STEMCONV_CASES = [
+    ("parity", (16, 3, 32, 224, 384)),
+    ("live_a", (12, 3, 23, 224, 384)),
+    ("ragged_hw", (2, 3, 3, 37, 53)),
+    ("w8_wo_ragged", (2, 3, 2, 30, 40)),
+    ("one_pixel", (1, 3, 2, 1, 1)),
+    ("edges", (1, 3, 2, 250, 144)),
+]
+
+
+def _stemconv_args(torch, xs, seed):
+    """x, w and bias in bf16 on the card: an ImageNet-normalised-like clip,
+    weights at fan-in scale, a bias that makes some sums negative."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(xs, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((64, 3, 1, 7, 7), generator=g, device="cuda") / 147 ** 0.5)
+    b = torch.randn((64,), generator=g, device="cuda") * 0.3
+    return x, w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def _stemconv_errs(torch, got, x, w, b, want) -> dict:
+    """The kernel's gaps over their tolerances (<= 1 passes): against the
+    float64 sum of the same bf16 operands, one bf16 rounding (2^-8 of the
+    value) plus f32 summation (2^-16 of the sum of |terms|); against its
+    plain version, one bf16 step of the biasless sum and one of the output
+    (the plain version rounds the sum, then adds the bias in bf16)."""
+    import torch.nn.functional as F
+
+    conv = lambda v, u: F.conv3d(v, u, stride=(1, 2, 2), padding=(0, 3, 3))  # noqa: E731
+    x64, w64 = x.double(), w.double()
+    s = conv(x64, w64)
+    ref = torch.relu(s + b.double()[None, :, None, None, None])
+    scale = conv(x64.abs(), w64.abs()) + b.double().abs()[None, :, None, None, None]
+    g64 = got.double()
+    exact = float(((g64 - ref).abs() / (2.0 ** -8 * ref.abs() + 2.0 ** -16 * scale)).max())
+    step = 2.0 ** -7 * (s.abs() + want.double().abs()) + 1e-6
+    plain = float(((g64 - want.double()).abs() / step).max())
+    return {"vs_float64": exact, "vs_plain": plain}
+
+
+def phase_stemconv(torch) -> dict:
+    """The stem kernel at every STEMCONV_CASES shape against the float64 sum
+    and its plain version (``_stemconv_errs``; the main paths' shapes on
+    their first 2 frames against float64, whole against the plain version),
+    then at parity's and live's shapes its time (inputs past the L2: each
+    clip is larger than it) beside its bound (the bf16 clip read once, the
+    bf16 output written once), its plain version (F.conv3d with the bias,
+    then relu: the route before) and F.conv3d alone (``library_ms``). Then
+    the attribution of cuDNN's f32 kernel: one bf16 window batch of a
+    folded seeded ViNet(3, 32) profiled with the kernel's route off and on,
+    the stem's spatial half inside a ``stem.conv_s`` range. Returns the
+    kernels-line row (parity)."""
+    import torch.nn.functional as F
+
+    from vinet_tpu_torch.ops import stemconv
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    row = None
+    for i, (case, xs) in enumerate(STEMCONV_CASES):
+        x, w, b = _stemconv_args(torch, xs, i)
+        before = stemconv.launches
+        got = stemconv.stemconv(x, w, b)
+        torch.cuda.synchronize()
+        check(stemconv.launches == before + 1 and got.dtype == torch.bfloat16, f"stemconv {case}")
+        want = stemconv.stemconv_plain(x, w, b)
+        check(got.shape == want.shape, f"stemconv {case}: {tuple(got.shape)}")
+        few = slice(0, 2)
+        errs = _stemconv_errs(torch, got[:, :, few], x[:, :, few], w, b, want[:, :, few])
+        step = 2.0 ** -7 * (got.float().abs() + want.float().abs()) + 2.0 ** -4
+        loose = float(((got.float() - want.float()).abs() / step).max())  # the whole batch
+        rec = {"phase": "stemconv_check", "case": case, "x": list(x.shape),
+               "out": list(got.shape), "err_over_tol": errs, "whole_vs_plain_loose": loose}
+        check(max(errs.values()) <= 1.0 and loose <= 1.0,
+              f"stemconv {case}: errors {errs}, whole batch {loose}")
+        del want
+        if case in ("parity", "live_a"):
+            ops = 2 * got.numel() * 147
+            nbytes = 2 * (x.numel() + w.numel() + b.numel() + got.numel())
+            bound_ms, bound_by = bound(nbytes, ops, torch.bfloat16)
+            del got
+            torch.cuda.empty_cache()
+            ms = _cold_ms(torch, lambda v: stemconv.stemconv_cuda(v, w, b), x, 20)
+            plain_ms = cuda_ms(lambda: stemconv.stemconv_plain(x, w, b), 5)
+            library_ms = cuda_ms(lambda: F.conv3d(x, w, b, stride=(1, 2, 2), padding=(0, 3, 3)), 5)
+            rec.update({"ops": ops, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+                        "library": "F.conv3d bf16 with bias (cuDNN)", "library_ms": library_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "achieved_gb_per_s": nbytes / ms / 1e6,
+                        "roofline_pct": 100 * bound_ms / ms})
+            if case == "parity":
+                row = {"name": "stemconv", "route": "cuda",
+                       "source": "vinet_tpu_torch/csrc/stemconv.cu", "replaces": None,
+                       "case": "parity window batch, S3D stem conv_s + bias + ReLU",
+                       **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")}}
+        emit(rec)
+        del x, w, b
+        torch.cuda.empty_cache()
+    emit({"phase": "stemconv_attribution", **_stem_attribution(torch)})
+    return row
+
+
+def _stem_attribution(torch) -> dict:
+    """Device time of one bf16 window batch (16 x 32 x 224 x 384, a folded
+    seeded ViNet(3, 32)) by kernel, the kernel's route off (the route before
+    it) and on, with two ranges: ``stem.conv_s`` around the stem's spatial
+    half and ``fold.border`` around conv5's fold border corrections
+    (``ops/phasefold.py::_up1d_conv``, which sum in f32). Each range's
+    kernels (the kernels its CPU ops launched; the stem kernel, launched
+    through ctypes, is linked to none) beside the batch's f32 fprop and
+    conversion kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vinet_tpu_torch.models import ViNet, cast_floating, fold_batchnorms
+    from vinet_tpu_torch.ops import phasefold, stemconv
+
+    torch.manual_seed(0)
+    model = cast_floating(fold_batchnorms(ViNet(3, 32).eval()), torch.bfloat16).cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((16, 32, 224, 384, 3), generator=g, device="cuda").to(torch.bfloat16)
+    sep_spatial, routes, border = stemconv.sep_spatial, stemconv.routes, phasefold._up1d_conv
+    ranges = ("stem.conv_s", "fold.border")
+
+    def stem_range(sep, v, conv=None):
+        if sep.conv_s.in_channels != 3:
+            return sep_spatial(sep, v, conv)
+        with record_function(ranges[0]):
+            return sep_spatial(sep, v, conv)
+
+    def border_range(*args, **kwargs):
+        with record_function(ranges[1]):
+            return border(*args, **kwargs)
+
+    def kernels_under(event, out):
+        for k in event.kernels:
+            out[k.name] = out.get(k.name, 0.0) + k.duration / 1e3
+        for child in event.cpu_children:
+            kernels_under(child, out)
+        return out
+
+    out = {}
+    try:
+        stemconv.sep_spatial, phasefold._up1d_conv = stem_range, border_range
+        for route in ("off", "on"):
+            stemconv.routes = routes if route == "on" else (lambda *a: False)
+            with torch.inference_mode():
+                model(x)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
+                    model(x)
+                    torch.cuda.synchronize()
+            kernels = {}
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA and e.key not in ranges:
+                    kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            under = {name: {} for name in ranges}
+            f32_convs = {}  # the convolutions that run cuDNN's f32 fprop, by input shapes
+            for e in prof.events():
+                if e.device_type != DeviceType.CPU:
+                    continue
+                if e.name in ranges:
+                    kernels_under(e, under[e.name])
+                elif e.name == "aten::convolution":
+                    ms = sum(v for k, v in kernels_under(e, {}).items() if "f32f32_f32f32" in k)
+                    if ms:
+                        key = str(e.input_shapes[:2])[:100]
+                        f32_convs[key] = f32_convs.get(key, 0.0) + ms
+            pick = lambda marker: sum(ms for k, ms in kernels.items() if marker in k)  # noqa: E731
+            out[f"route_{route}"] = {
+                "device_ms": sum(kernels.values()),
+                **{f"{name}_ms": sum(k.values()) for name, k in under.items()},
+                **{f"{name}_kernels": {k[:90]: ms for k, ms in ks.items()}
+                   for name, ks in under.items()},
+                "f32_fprop_ms": pick("f32f32_f32f32"), "convert_tensor_ms": pick("convertTensor"),
+                "stemconv_ms": pick("stemconv"), "f32_fprop_convs": f32_convs,
+                "top_kernels": [[k[:90], ms] for k, ms in
+                                sorted(kernels.items(), key=lambda kv: -kv[1])[:10]]}
+    finally:
+        stemconv.sep_spatial, stemconv.routes, phasefold._up1d_conv = sep_spatial, routes, border
+    check(out["route_on"]["stemconv_ms"] > 0, f"the routed window batch: {out['route_on']}")
+    return out
+
+
 def profile_device(torch, fn) -> dict:
     """Where the device time of one fn() goes, by kernel, from torch.profiler:
     device time against wall time, each hand-written kernel's time
@@ -942,18 +1143,19 @@ def phase_model(torch) -> None:
 
 
 def _launch_counts() -> dict:
-    from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, saliency_head, tconv
+    from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, saliency_head, stemconv, tconv
 
     return {"saliency_head": saliency_head.launches,
             "saliency_head_up2x": saliency_head.launches_up2x, "int8_mm": int8_mm.launches,
-            "tconv": tconv.launches, "dconv": dconv.launches, "maxpool3d": maxpool.launches}
+            "tconv": tconv.launches, "dconv": dconv.launches, "maxpool3d": maxpool.launches,
+            "stemconv": stemconv.launches}
 
 
 def _reset_launch_counts() -> None:
-    from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, saliency_head, tconv
+    from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, saliency_head, stemconv, tconv
 
     saliency_head.launches = saliency_head.launches_up2x = int8_mm.launches = tconv.launches = 0
-    dconv.launches = maxpool.launches = 0
+    dconv.launches = maxpool.launches = stemconv.launches = 0
 
 
 def _map_cc(torch, a, b) -> tuple:
@@ -1030,8 +1232,9 @@ def phase_int8_model(torch) -> dict:
           "card_int8_vs_cpu_int8_mean_abs_err": cpu_mean, "cpu_input": list(small.shape),
           "cpu_tol": [INT8_CPU_MAX_TOL, INT8_CPU_MEAN_TOL]})
     check(n_quant == 81, f"{n_quant} quantized convs, expected 81")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the int8 path")
+    for k, n in launches.items():  # the stem is a QuantConv3d here: no stem kernel
+        check(n > 0 if k != "stemconv" else n == 0,
+              f"kernel {k} launched {n} times on the int8 path")
     for k in ("int8_mm", "tconv", "saliency_head"):  # a renamed kernel would be credited 0 ms
         check(profile["kernel_ms"][k] > 0, f"the int8 profile credits no time to {k}")
     check(max_err <= INT8_MAX_TOL and mean_err <= INT8_MEAN_TOL and cc_min >= INT8_CC_MIN,
@@ -1711,6 +1914,7 @@ def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
     check(bn_moved == len(bn0), f"{len(bn0) - bn_moved} BN statistics did not move")
     check(step_launches["saliency_head"] == 0, f"the train steps launched the head: {step_launches}")
     check(step_launches["dconv"] == 0, f"the train steps launched dconv: {step_launches}")
+    check(step_launches["stemconv"] == 0, f"the train steps launched stemconv: {step_launches}")
     _require_head(eval_launches, "the eval step")
     check(all(guard.values()), f"autograd guard: {guard}")
     check(cpu_loss_err <= TRAIN_CPU_LOSS_TOL and cpu_l2 <= TRAIN_CPU_GRAD_L2_TOL,
@@ -2973,7 +3177,8 @@ def main() -> int:
     card = phase_card()
     phase_build()
     rows = {"saliency_head": phase_head_kernel(torch), **phase_gemm_kernels(torch),
-            "dconv": phase_dconv(torch), "maxpool3d": phase_maxpool(torch)}
+            "dconv": phase_dconv(torch), "maxpool3d": phase_maxpool(torch),
+            "stemconv": phase_stemconv(torch)}
     torch.cuda.empty_cache()
     phase_model(torch)
     int8_launches = phase_int8_model(torch)
@@ -3005,13 +3210,16 @@ def main() -> int:
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():
-        bf16_path = name in ("saliency_head", "dconv", "maxpool3d")
+        bf16_path = name in ("saliency_head", "dconv", "maxpool3d", "stemconv")
         row["launches"] = (cli_launches if bf16_path else int8_launches)[name]
     rows["saliency_head"]["launches_up2x"] = cli_launches["saliency_head_up2x"]
     rows["saliency_head"]["launches_by_path"] = {p: c["saliency_head_up2x"]
                                                  for p, c in paths.items()}
     rows["dconv"]["launches_by_path"] = {p: c.get("dconv") for p, c in paths.items()}
     rows["maxpool3d"]["launches_by_path"] = {p: c.get("maxpool3d") for p, c in paths.items()}
+    rows["stemconv"]["launches_by_path"] = stem = {p: c.get("stemconv") for p, c in paths.items()}
+    check(all(stem[p] for p in ("cli", "streaming", "live", "serve")) and stem["train_steps"] == 0,
+          f"stemconv launches by path: {stem}")
     emit({"kernels": [rows[name] for name in KERNELS]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

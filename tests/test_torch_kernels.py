@@ -14,7 +14,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, quant, saliency_head, tconv
+from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, quant, saliency_head, stemconv, tconv
 
 torch.set_num_threads(2)
 
@@ -603,6 +603,166 @@ def test_parity_window_batch_through_maxpool_gives_the_same_maps_on_card(cuda, m
     assert torch.equal(got, want)
 
 
+# (name, x shape (B, 3, T, H, W)): the stem's spatial convolution at the
+# main paths' 224 x 384, a few frames of parity's window batch and live
+# segment A's 23 frames (chip_smoke.py's STEMCONV_CASES time them whole)
+STEMCONV_SHAPES = [("parity", (2, 3, 4, 224, 384)), ("live_a", (1, 3, 23, 224, 384))]
+# ragged: H and W odd (patch staged and output stored element by element), W
+# % 8 == 0 with W_out % 8 != 0, one pixel, tiles cut at both edges, W 8
+STEMCONV_RAGGED = [(2, 3, 3, 37, 53), (2, 3, 2, 30, 40), (1, 3, 2, 1, 1), (1, 3, 2, 250, 144),
+                   (3, 3, 1, 9, 8)]
+
+
+def _stem_args(device, shape, seed=0):
+    """x (ImageNet-normalised scale), w at fan-in scale and a bias that
+    makes some sums negative, bf16 on the device."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device)
+    w = torch.randn((64, 3, 1, 7, 7), generator=g, device=device) / 147 ** 0.5
+    b = torch.randn((64,), generator=g, device=device) * 0.3
+    return tuple(t.to(torch.bfloat16) for t in (x, w, b))
+
+
+def _stem_conv(x, w):
+    return F.conv3d(x, w, stride=stemconv.STRIDE, padding=stemconv.PADDING)
+
+
+def _assert_stem_matches(x, w, b):
+    """The kernel within one bf16 step of its plain version (which rounds
+    the sum, then adds the bias in bf16: a step of the biasless sum and one
+    of the output), and within one bf16 rounding of the float64 sum of the
+    same operands plus f32 summation; NaNs and infinities where the plain
+    version has them."""
+    before = stemconv.launches
+    got = stemconv.stemconv_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert stemconv.launches == before + 1
+    want = stemconv.stemconv_plain(x, w, b)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+    ok = got.isfinite()
+    b64 = torch.zeros(64, dtype=torch.float64, device=x.device) if b is None else b.double()
+    s = _stem_conv(x.double(), w.double())
+    ref = torch.relu(s + b64[None, :, None, None, None])
+    scale = _stem_conv(x.double().abs(), w.double().abs()) + b64.abs()[None, :, None, None, None]
+    g64, w64 = got.double()[ok], want.double()[ok]
+    assert bool(((g64 - w64).abs() <= 2.0 ** -7 * (s[ok].abs() + w64.abs()) + 1e-6).all())
+    assert bool(((g64 - ref[ok]).abs() <= 2.0 ** -8 * ref[ok].abs()
+                 + 2.0 ** -16 * scale[ok]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", STEMCONV_SHAPES, ids=[c[0] for c in STEMCONV_SHAPES])
+def test_stemconv_kernel_matches_plain_on_card(cuda, name, shape):
+    _assert_stem_matches(*_stem_args(cuda, shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", STEMCONV_RAGGED)
+def test_stemconv_kernel_ragged_shapes_on_card(cuda, shape):
+    """Ragged shapes, without a bias too; then x one element past an aligned
+    address (the patch staged element by element)."""
+    x, w, b = _stem_args(cuda, shape, seed=1)
+    _assert_stem_matches(x, w, b)
+    _assert_stem_matches(x, w, None)
+    odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(shape)
+    odd.copy_(x)
+    _assert_stem_matches(odd, w, b)
+
+
+@pytest.mark.gpu
+def test_stemconv_kernel_reads_t_slices_and_keeps_nan_and_inf_on_card(cuda):
+    """x a T slice of a longer clip (B, C and T strides read as they are,
+    16-byte staging); then NaN and infinities among the pixels: the taps
+    that pad each (c, kh) row of K read a real pixel against a zero weight
+    and must not turn an infinity into a NaN."""
+    x, w, b = _stem_args(cuda, (2, 3, 7, 64, 96), seed=2)
+    part = x[:, :, 2:5]
+    assert not part.is_contiguous()
+    _assert_stem_matches(part, w, b)
+    flat = x.view(-1)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for v in (float("inf"), float("-inf"), float("nan")):
+        flat[torch.randint(0, flat.numel(), (12,), generator=g, device=cuda)] = v
+    _assert_stem_matches(x, w, b)
+
+
+@pytest.mark.gpu
+def test_stemconv_route_on_card(cuda):
+    """The stem's SepConv3d folded and in bf16 takes the kernel outside
+    autograd; f32, an unfolded BatchNorm and autograd keep F.conv3d."""
+    from vinet_tpu_torch.models.layers import SepConv3d
+
+    torch.manual_seed(0)
+    sep = SepConv3d(3, 64, 7, 2, 3).eval()
+    x = _stem_args(cuda, (1, 3, 2, 32, 48))[0]
+    unfolded = SepConv3d(3, 64, 7, 2, 3).eval().to(cuda, torch.bfloat16)
+    sep.fold_bn()
+    f32 = sep.to(cuda)
+    before = stemconv.launches
+    with torch.no_grad():
+        f32(x.float())
+        unfolded(x)
+    f32(x.float()).sum().backward()
+    bf = sep.to(torch.bfloat16)
+    bf(x).sum().backward()  # parameters that require grad: autograd keeps F.conv3d
+    assert stemconv.launches == before
+    with torch.no_grad():
+        got = bf(x)
+    assert stemconv.launches == before + 1 and got.dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+def test_parity_window_batch_takes_stemconv_on_card(cuda, monkeypatch):
+    """One parity window batch (16 clips of 32 x 224 x 384, bf16, seeded
+    random weights) through SlidingWindowPredictor.run_batch launches the
+    stem kernel once, and its maps are those of the same batch with the
+    route off within a grey level on average (the two paths round the
+    stem's output differently, by up to a bf16 step)."""
+    from vinet_tpu_torch.inference import SlidingWindowPredictor
+    from vinet_tpu_torch.models import ViNet
+
+    torch.manual_seed(0)
+    pred = SlidingWindowPredictor(ViNet(3, 32), batch=16, device=cuda)
+    frames = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (47, 224, 384, 3), dtype=np.uint8)).to(cuda)
+    idx = (torch.arange(16)[:, None] + torch.arange(32)[None]).to(cuda)
+
+    def run():
+        before = stemconv.launches
+        maps = pred.run_batch(frames, idx, (360, 640), True)
+        torch.cuda.synchronize()
+        return maps, stemconv.launches - before
+
+    got, launched = run()
+    monkeypatch.setattr(stemconv, "routes", lambda *a: False)
+    want, launched_off = run()
+    assert (launched, launched_off) == (1, 0)
+    gap = (got.float() - want.float()).abs()
+    print("parity maps, stem kernel vs route off: mean", float(gap.mean()), "max", float(gap.max()))
+    assert got.shape == want.shape == (16, 360, 640) and float(gap.mean()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_train_step_launches_no_stemconv_on_card(cuda):
+    """A bf16 autocast train step of ViNet (BatchNorm in train mode,
+    autograd) keeps F.conv3d for the stem."""
+    from vinet_tpu_torch.models import ViNet
+    from vinet_tpu_torch.training import LossConfig
+    from vinet_tpu_torch.training.trainer import init_train_state, make_train_step
+
+    torch.manual_seed(0)
+    ts = init_train_state(ViNet(3, 32).to(cuda))
+    step = make_train_step(LossConfig(), compute_dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"clip": torch.randn((2, 32, 64, 64, 3), generator=g, device=cuda),
+             "gt": torch.rand((2, 64, 64), generator=g, device=cuda)}
+    before = stemconv.launches
+    ts, out = step(ts, batch)
+    torch.cuda.synchronize()
+    assert stemconv.launches == before and bool(torch.isfinite(torch.as_tensor(out["loss"])))
+
+
 # (kernel, stride, padding, Cin, Cout): every conv kind of the int8 model, as
 # in tests/torch_port_util.py, which this file does not import so that it
 # runs alone where JAX is absent
@@ -744,26 +904,29 @@ def _grad_entry_calls(device):
     w.requires_grad_()
     xd, wd = (t.to(device) for t in _operands(torch.bfloat16, [(1, 8, 3, 4, 5), (4, 8, 3, 3, 3)]))
     wd.requires_grad_()
+    xs, ws, bs = _stem_args(device, (1, 3, 2, 9, 16))
+    ws.requires_grad_()
     return {"saliency_head_cuda": lambda: saliency_head.saliency_head_cuda(z, w6, b6, w7, b7),
             "saliency_head_up2x_cuda": lambda: saliency_head.saliency_head_up2x_cuda(
                 z, w6, b6, w7, b7),
             "int8_mm_cuda": lambda: int8_mm.int8_mm_cuda(a.requires_grad_(), b),
             "tconv_cuda": lambda: tconv.tconv_cuda(x, w, 1),
             "dconv_cuda": lambda: dconv.dconv_cuda(xd, wd),
-            "max_pool3d_cuda": lambda: maxpool.max_pool3d_cuda(xd.detach().requires_grad_(), 3)}
+            "max_pool3d_cuda": lambda: maxpool.max_pool3d_cuda(xd.detach().requires_grad_(), 3),
+            "stemconv_cuda": lambda: stemconv.stemconv_cuda(xs, ws, bs)}
 
 
 def _assert_refuses_autograd(entry, call):
     before = (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches,
-              maxpool.launches)
+              maxpool.launches, stemconv.launches)
     with pytest.raises(RuntimeError, match=f"{entry} has no backward"):
         call()
     assert (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches,
-            maxpool.launches) == before
+            maxpool.launches, stemconv.launches) == before
 
 
 CUDA_ENTRIES = ["saliency_head_cuda", "saliency_head_up2x_cuda", "int8_mm_cuda", "tconv_cuda",
-                "dconv_cuda", "max_pool3d_cuda"]
+                "dconv_cuda", "max_pool3d_cuda", "stemconv_cuda"]
 
 
 @pytest.mark.parametrize("entry", CUDA_ENTRIES)

@@ -41,7 +41,7 @@ from vinet_tpu_torch.inference.streaming import (MAXP3_DENSE, MAXT4_DENSE, AVStr
 from vinet_tpu_torch.models.decoder import run_stage
 from vinet_tpu_torch.models.layers import BasicConv3d, SepConv3d
 from vinet_tpu_torch.models.s3d import InceptionBlock
-from vinet_tpu_torch.ops import maxpool
+from vinet_tpu_torch.ops import maxpool, stemconv
 from vinet_tpu_torch.utils import trace
 
 
@@ -66,9 +66,9 @@ def _valid_apply(mod: nn.Module, x: torch.Tensor):
         y, r = _valid_apply(mod.conv, x)
         return torch.relu(mod.bn(y)), r
     if isinstance(mod, SepConv3d):
-        y, rs = _valid_apply(mod.conv_s, x)
-        y, rt = _valid_apply(mod.conv_t, torch.relu(mod.bn_s(y)))
-        return torch.relu(mod.bn_t(y)), rs + rt
+        y = stemconv.sep_spatial(mod, x, lambda v: _valid_apply(mod.conv_s, v)[0])
+        y, rt = _valid_apply(mod.conv_t, y)
+        return torch.relu(mod.bn_t(y)), mod.conv_s.padding[0] + rt
     if isinstance(mod, nn.Sequential):
         r = 0
         for layer in mod:

@@ -45,7 +45,7 @@ from vinet_tpu_torch.data.pipeline import device_preprocess
 from vinet_tpu_torch.device import resolve_device
 from vinet_tpu_torch.inference.engine import BLUR_KSIZE, FETCH_EVERY, prepared_copy
 from vinet_tpu_torch.models.decoder import DECODER_PLANS, run_stage
-from vinet_tpu_torch.ops import dconv
+from vinet_tpu_torch.ops import dconv, stemconv
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
 from vinet_tpu_torch.ops.maxpool import MaxPool3d
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
@@ -99,7 +99,7 @@ def streaming_pyramid(backbone, x: torch.Tensor):
     if x.shape[2] % 8:
         raise ValueError(f"timeline length must be a multiple of 8, got {x.shape[2]}")
     stem, pool, b1x1, sep192 = backbone.base1
-    y = torch.relu(stem.bn_s(stem.conv_s(x)))
+    y = stemconv.sep_spatial(stem, x)
     y = torch.relu(stem.bn_t(dense_conv_t(stem.conv_t, y)))
     y = _split_time(y, s)  # (2S, 64, N/2, ...)
     y3 = sep192(b1x1(pool(y)))

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vinet_tpu_torch.ops import stemconv
 from vinet_tpu_torch.ops.norm import BN_EPS, fold_bn_into_conv
 
 BN_MOMENTUM = 0.001
@@ -55,7 +56,9 @@ class BasicConv3d(nn.Module):
 
 
 class SepConv3d(nn.Module):
-    """Factorised 3-D conv: (1,k,k) spatial then (k,1,1) temporal."""
+    """Factorised 3-D conv: (1,k,k) spatial then (k,1,1) temporal. The
+    spatial half takes ``ops/stemconv.py::sep_spatial``'s route (the stem's
+    kernel on the card once its BatchNorm is folded)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0):
         super().__init__()
@@ -67,7 +70,7 @@ class SepConv3d(nn.Module):
         self.bn_t = _bn(out_ch)
 
     def forward(self, x):
-        x = torch.relu(self.bn_s(self.conv_s(x)))
+        x = stemconv.sep_spatial(self, x)
         return torch.relu(self.bn_t(self.conv_t(x)))
 
     def fold_bn(self):
