@@ -179,12 +179,10 @@ import sys
 import tempfile
 import time
 
+from portbench.core import HBM_BYTES_PER_S, PEAK_FLOPS
+
 FIXTURE = os.path.join("artifacts", "streamft_fixture.npz")
 KERNELS = ("saliency_head", "int8_mm", "tconv", "dconv", "maxpool3d", "stemconv")
-# H100 SXM data sheet: HBM rate, and dense peaks by input type (f32 on the
-# CUDA cores; bf16 and int8 on the tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12, "torch.int8": 1979e12}
 KERNEL_TOL = 1e-5  # kernel vs plain: same inputs, both accumulate in f32
 # (relative to the largest output for the GEMM kernels; int8 must be exact)
 CPU_TOL = 2e-3  # card f32 vs CPU f32: the port's parity anchor against JAX
@@ -317,7 +315,7 @@ def bound(bytes_moved: int, ops: int, dtype) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the peak rate of dtype."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S[str(dtype)] * 1e3
+    ops_ms = ops / PEAK_FLOPS[str(dtype).removeprefix("torch.")] * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -969,11 +967,11 @@ def _stem_attribution(torch) -> dict:
     sep_spatial, routes, border = stemconv.sep_spatial, stemconv.routes, phasefold._up1d_conv
     ranges = ("stem.conv_s", "fold.border")
 
-    def stem_range(sep, v, conv=None):
+    def stem_range(sep, v):
         if sep.conv_s.in_channels != 3:
-            return sep_spatial(sep, v, conv)
+            return sep_spatial(sep, v)
         with record_function(ranges[0]):
-            return sep_spatial(sep, v, conv)
+            return sep_spatial(sep, v)
 
     def border_range(*args, **kwargs):
         with record_function(ranges[1]):

@@ -165,9 +165,10 @@ def test_port_imports_neither_jax_nor_vinet_tpu():
     # the port, its chip check, and the card tests that run where JAX is absent
     sources = sorted((REPO / "vinet_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels.py",
-        REPO / "tests" / "test_torch_maxpool.py", REPO / "tests" / "test_torch_stemconv.py"]
+        REPO / "tests" / "test_torch_maxpool.py", REPO / "tests" / "test_torch_stemconv.py",
+        REPO / "tests" / "test_torch_run_in_time.py"]
     assert len(sources) > 10
-    names = {p.relative_to(REPO / "vinet_tpu_torch").as_posix() for p in sources[:-4]}
+    names = {p.relative_to(REPO / "vinet_tpu_torch").as_posix() for p in sources[:-5]}
     assert {"models/soundnet.py", "models/transformer.py", "models/avinet.py", "data/audio.py",
             "cli/generate_result_audio_visual.py", "cli/generate_result_dave.py",
             "cli/generate_theatre.py", "parallel/mesh.py", "parallel/partition.py",

@@ -595,7 +595,7 @@ def test_parity_window_batch_through_maxpool_gives_the_same_maps_on_card(cuda, m
         return maps, maxpool.launches - counts[0], dconv.launches - counts[1]
 
     got, pools, convs = run()
-    monkeypatch.setattr(maxpool, "USE_KERNEL", False)
+    monkeypatch.setattr(maxpool, "routes", lambda x: False)
     want, pools_off, convs_off = run()
     assert (pools, pools_off) == (14, 0)
     assert convs == convs_off > 0

@@ -13,9 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vinet_tpu_torch.inference import live, streaming
 from vinet_tpu_torch.models.avinet import AViNet
-from vinet_tpu_torch.models.s3d import S3DBackbone
+from vinet_tpu_torch.models.s3d import S3DBackbone, run_in_time
 from vinet_tpu_torch.ops import maxpool
 
 torch.set_num_threads(2)
@@ -38,10 +37,10 @@ POOLS = [
     ("maxp4", (2, 9, 2, 5, 7), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
     ("mixed_5b", (2, 9, 2, 3, 3), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
     ("mixed_5c", (2, 9, 2, 3, 3), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
-    # streaming timelines, dense in time (inference/streaming.py)
+    # streaming timelines, dense in time (models/s3d.py::run_in_time)
     ("maxp3_dense", (4, 5, 9, 7, 11), (3, 3, 3), (1, 2, 2), (1, 1, 1)),
     ("maxt4_dense", (8, 9, 5, 5, 7), (2, 1, 1), (1, 1, 1), (0, 0, 0)),
-    # the live path's valid-in-time forms (inference/live.py::_valid_apply)
+    # the live path's valid-in-time forms (models/s3d.py::run_in_time)
     ("live_mixed_valid", (4, 6, 6, 7, 11), (3, 3, 3), (1, 1, 1), (0, 1, 1)),
     ("live_maxp3_valid", (4, 5, 6, 7, 11), (3, 3, 3), (1, 2, 2), (0, 1, 1)),
     ("live_maxt4_valid", (8, 9, 3, 5, 7), (2, 1, 1), (1, 1, 1), (0, 0, 0)),
@@ -102,12 +101,6 @@ def test_a_tensor_requiring_grad_keeps_f_max_pool3d_and_gets_its_gradient():
     assert x.grad is not None and torch.equal(x.grad, want.grad)
 
 
-def test_use_kernel_false_routes_nothing(monkeypatch):
-    x = _x((1, 2, 3, 5, 7), torch.bfloat16)
-    monkeypatch.setattr(maxpool, "USE_KERNEL", False)
-    assert not maxpool.kernel_takes(x)
-
-
 @pytest.mark.parametrize("setting", [{"dilation": 2}, {"ceil_mode": True},
                                      {"return_indices": True}])
 def test_other_module_settings_keep_the_modules_own_forward(setting, monkeypatch):
@@ -157,7 +150,10 @@ def test_every_s3d_pool_is_the_routed_module():
 
 
 def test_the_streaming_live_and_fusion_pools_are_routed(monkeypatch):
-    assert type(streaming.MAXP3_DENSE) is type(streaming.MAXT4_DENSE) is maxpool.MaxPool3d
+    """The streaming (dense) and live (valid) forms of maxp3 and maxt4 take
+    the route with time stride 1, maxp3 with its time padding or without."""
+    backbone = S3DBackbone()
+    assert type(backbone.maxp3) is type(backbone.maxt4) is maxpool.MaxPool3d
     fusion = AViNet(input_hw=(64, 96)).maxpool
     assert type(fusion) is maxpool.MaxPool3d
     assert (fusion.kernel_size, fusion.stride) == ((4, 1, 1), (2, 1, 2))
@@ -165,9 +161,14 @@ def test_the_streaming_live_and_fusion_pools_are_routed(monkeypatch):
     monkeypatch.setattr(maxpool, "max_pool3d",
                         lambda x, k, s, p: calls.append((k, s, p)) or F.max_pool3d(x, k, s, p))
     x = _x((4, 5, 6, 7, 11), torch.bfloat16)
-    y, r = live._valid_apply(streaming.MAXP3_DENSE, x)
-    assert calls == [((3, 3, 3), (1, 2, 2), (0, 1, 1))] and r == 1
-    assert torch.equal(y, F.max_pool3d(x, 3, (1, 2, 2), (0, 1, 1)))
+    for form, pt in (("dense", 1), ("valid", 0)):
+        y, r = run_in_time(backbone.maxp3, x, form)
+        assert calls.pop() == ((3, 3, 3), (1, 2, 2), (pt, 1, 1)) and r == 1
+        assert torch.equal(y, F.max_pool3d(x, 3, (1, 2, 2), (pt, 1, 1)))
+        y, r = run_in_time(backbone.maxt4, x, form)
+        assert calls.pop() == ((2, 1, 1), (1, 1, 1), (0, 0, 0)) and r == 0
+        assert torch.equal(y, F.max_pool3d(x, (2, 1, 1), 1, 0))
+    assert not calls
 
 
 def _roofline_reader():

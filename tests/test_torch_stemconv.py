@@ -1,7 +1,7 @@
 """The stem convolution's route (``vinet_tpu_torch/ops/stemconv.py``) on the
 CPU: the plain version against float64; the route's decisions; the wrapper's
-checks; the three call sites that hold the route, with their outputs
-unchanged; and the benchmark's reader of the stem's roofline share. The
+checks; the parity, streaming and live paths, which take the route, with
+their outputs unchanged; and the benchmark's reader of the stem's roofline share. The
 kernel itself is compared with its plain version on the card in
 ``tests/test_torch_kernels.py``."""
 
@@ -13,10 +13,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vinet_tpu_torch.inference import live, streaming
+from vinet_tpu_torch.inference import streaming
 from vinet_tpu_torch.models.inference import cast_floating, fold_batchnorms
 from vinet_tpu_torch.models.layers import SepConv3d
-from vinet_tpu_torch.models.s3d import S3DBackbone
+from vinet_tpu_torch.models.s3d import S3DBackbone, run_in_time
 from vinet_tpu_torch.ops import stemconv
 from vinet_tpu_torch.ops.quant import QuantConv3d
 
@@ -134,14 +134,14 @@ def test_cuda_entry_refuses_autograd_first():
 def _hooked(monkeypatch):
     """Route every sep_spatial call through a hook that records the module
     and checks the result against the expression the call sites held
-    before the route: relu(bn_s(conv_s(x))), conv_s in its given form."""
+    before the route: relu(bn_s(conv_s(x)))."""
     calls = []
     routed = stemconv.sep_spatial
 
-    def hook(sep, x, conv=None):
-        y = routed(sep, x, conv)
+    def hook(sep, x):
+        y = routed(sep, x)
         calls.append(sep)
-        assert torch.equal(y, torch.relu(sep.bn_s((conv or sep.conv_s)(x))))
+        assert torch.equal(y, torch.relu(sep.bn_s(sep.conv_s(x))))
         return y
 
     monkeypatch.setattr(stemconv, "sep_spatial", hook)
@@ -172,15 +172,15 @@ def test_streaming_pyramid_takes_the_route_for_the_stem(monkeypatch):
 
 
 def test_live_segment_a_takes_the_route_with_its_valid_in_time_conv(monkeypatch):
-    """live._valid_apply's SepConv3d branch: the spatial half through the
-    route, conv_s in its valid-in-time form on the other route; the radius
-    and the output as before."""
+    """run_in_time(stem, x, "valid"), live's segment A: the spatial half
+    through the route, the temporal half without its time padding; the
+    radius and the output as before."""
     backbone = fold_batchnorms(S3DBackbone().eval())
     stem = backbone.base1[0]
     calls = _hooked(monkeypatch)
     x = _args((2, 3, 9, 32, 32))[0]
     with torch.no_grad():
-        y, r = live._valid_apply(stem, x)
+        y, r = run_in_time(stem, x, "valid")
         s = torch.relu(F.conv3d(x, stem.conv_s.weight, stem.conv_s.bias, stride=(1, 2, 2),
                                 padding=(0, 3, 3)))
         t = F.conv3d(s, stem.conv_t.weight, stem.conv_t.bias, stride=1, padding=0)
@@ -205,8 +205,8 @@ def test_roofline_reader_counts_the_stem_the_backbone_runs(monkeypatch):
     mod = _roofline_reader()
     seen = []
     routed = stemconv.sep_spatial
-    monkeypatch.setattr(stemconv, "sep_spatial", lambda sep, x, conv=None: seen.append(
-        (x.shape, sep.conv_s.weight.numel())) or routed(sep, x, conv))
+    monkeypatch.setattr(stemconv, "sep_spatial", lambda sep, x: seen.append(
+        (x.shape, sep.conv_s.weight.numel())) or routed(sep, x))
     backbone = cast_floating(fold_batchnorms(S3DBackbone().eval()), torch.bfloat16)
     cfg = {"clip_size": 8, "input_h": 32, "input_w": 64}
     out = []

@@ -6,8 +6,9 @@ The dense phase timelines of ``inference/streaming.py`` advance by
 overlap-save: the backbone is cut into segments where ``streaming_pyramid``
 splits phases; each segment keeps a tail of its own INPUT timeline (its
 temporal receptive diameter) and, per microbatch of F frames, runs VALID in
-time over [tail | new], producing exactly the new timeline positions. Maps
-equal the chunked streaming maps away from stream boundaries.
+time over [tail | new] (``models/s3d.py::run_in_time``), producing exactly
+the new timeline positions. Maps equal the chunked streaming maps away from
+stream boundaries.
 
 The S3D temporal convs are centred, so a position is final only once its
 future context exists: maps lag the input by a constant of the architecture
@@ -31,56 +32,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vinet_tpu_torch.data.audio import MAX_AUDIO_WIN, windowed_excerpt
 from vinet_tpu_torch.data.pipeline import device_preprocess
-from vinet_tpu_torch.inference.streaming import (MAXP3_DENSE, MAXT4_DENSE, AVStreamingPredictor,
-                                                 StreamingPredictor, _split_time, valid_tconv)
+from vinet_tpu_torch.inference.streaming import (AVStreamingPredictor, StreamingPredictor,
+                                                 _split_time, valid_tconv)
 from vinet_tpu_torch.models.decoder import run_stage
-from vinet_tpu_torch.models.layers import BasicConv3d, SepConv3d
-from vinet_tpu_torch.models.s3d import InceptionBlock
-from vinet_tpu_torch.ops import maxpool, stemconv
+from vinet_tpu_torch.models.s3d import run_in_time
 from vinet_tpu_torch.utils import trace
-
-
-def _valid_apply(mod: nn.Module, x: torch.Tensor):
-    """Apply a module dense in time (temporal stride 1) with its temporal
-    padding stripped: the output loses the module's temporal receptive
-    radius at each end. Returns (y, radius), the radius in input positions.
-    Inception branches have unequal radii, so their outputs are trimmed to
-    the widest branch's before the channel concat."""
-    if isinstance(mod, nn.Conv3d):
-        pad = mod.padding
-        y = F.conv3d(x, mod.weight, mod.bias, stride=(1, *mod.stride[1:]),
-                     padding=(0, *pad[1:]))
-        return y, pad[0]
-    if isinstance(mod, nn.MaxPool3d):
-        k, s, p = (v if isinstance(v, tuple) else (v,) * 3
-                   for v in (mod.kernel_size, mod.stride, mod.padding))
-        if not (k[0] == 1 or p[0] or k[0] == 2):
-            raise ValueError(f"no valid temporal form for a max pool {k} with padding {p}")
-        return maxpool.max_pool3d(x, k, (1, *s[1:]), (0, *p[1:])), p[0]
-    if isinstance(mod, BasicConv3d):
-        y, r = _valid_apply(mod.conv, x)
-        return torch.relu(mod.bn(y)), r
-    if isinstance(mod, SepConv3d):
-        y = stemconv.sep_spatial(mod, x, lambda v: _valid_apply(mod.conv_s, v)[0])
-        y, rt = _valid_apply(mod.conv_t, y)
-        return torch.relu(mod.bn_t(y)), mod.conv_s.padding[0] + rt
-    if isinstance(mod, nn.Sequential):
-        r = 0
-        for layer in mod:
-            x, ri = _valid_apply(layer, x)
-            r += ri
-        return x, r
-    if isinstance(mod, InceptionBlock):
-        outs = [_valid_apply(b, x) for b in (mod.branch0, mod.branch1, mod.branch2, mod.branch3)]
-        rmax = max(r for _, r in outs)
-        return torch.cat([y[:, :, rmax - r: y.shape[2] - (rmax - r)] for y, r in outs],
-                         dim=1), rmax
-    raise TypeError(f"_valid_apply: unhandled module {type(mod).__name__}")
 
 
 # Tail lengths (input positions) of the segments, cut at streaming_pyramid's
@@ -151,8 +111,8 @@ class LiveStreamingPredictor(StreamingPredictor):
         stem, pool1, b1x1, sep192 = bb.base1
         self._segments = {  # key: (module, tail length)
             "A": (stem, _TAIL_A), "B": (nn.Sequential(pool1, b1x1, sep192), _TAIL_B),
-            "C": (nn.Sequential(bb.maxp2, *bb.base2), _TAIL_C), "D1": (MAXP3_DENSE, _TAIL_D1),
-            "D2": (bb.base3, _TAIL_D2), "E1": (MAXT4_DENSE, _TAIL_E1), "E2": (bb.base4, _TAIL_E2)}
+            "C": (nn.Sequential(bb.maxp2, *bb.base2), _TAIL_C), "D1": (bb.maxp3, _TAIL_D1),
+            "D2": (bb.base3, _TAIL_D2), "E1": (bb.maxt4, _TAIL_E1), "E2": (bb.base4, _TAIL_E2)}
         self._out_size = None
         self._quantize_u8 = False
         self.feeds = 0  # feed() and flush steps served; the spans' request is the current one
@@ -195,7 +155,7 @@ class LiveStreamingPredictor(StreamingPredictor):
         mod, length = self._segments[key]
         buf = torch.cat([self._tails[key], new.to(self.dtype)], dim=2)
         self._tails[key] = buf[:, :, -length:].contiguous()
-        y, _ = _valid_apply(mod, buf)
+        y, _ = run_in_time(mod, buf, "valid")
         return y if keep_oldest is None else y[:, :, :keep_oldest]
 
     def _advance(self, frames_u8: torch.Tensor) -> None:

@@ -3,11 +3,11 @@ runs once over the video timeline instead of once per sliding window,
 ``vinet_tpu/inference/streaming.py`` in NCDHW.
 
 Every temporally strided op (the stem's conv_t s2, maxp3 s2, maxt4 s2) runs
-DENSE (stride 1) and its output is split into even/odd phase timelines,
-folded into the batch axis; every other op is unchanged, since on a phase
-timeline a window's temporal neighbours are the timeline's neighbours. For a
-window starting at frame s each pyramid level is a contiguous slice of one
-phase timeline:
+DENSE (stride 1, ``models/s3d.py::run_in_time``) and its output is split
+into even/odd phase timelines, folded into the batch axis; every other op is
+unchanged, since on a phase timeline a window's temporal neighbours are the
+timeline's neighbours. For a window starting at frame s each pyramid level
+is a contiguous slice of one phase timeline:
 
     p1 = s % 2;  s1 = s // 2      y3/y2 <- timeline[p1][s1 : s1+16]
     p2 = s1 % 2; s2 = s1 // 2     y1    <- timeline[p2*2+p1][s2 : s2+8]
@@ -45,9 +45,9 @@ from vinet_tpu_torch.data.pipeline import device_preprocess
 from vinet_tpu_torch.device import resolve_device
 from vinet_tpu_torch.inference.engine import BLUR_KSIZE, FETCH_EVERY, prepared_copy
 from vinet_tpu_torch.models.decoder import DECODER_PLANS, run_stage
-from vinet_tpu_torch.ops import dconv, stemconv
+from vinet_tpu_torch.models.s3d import run_in_time
+from vinet_tpu_torch.ops import dconv
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
-from vinet_tpu_torch.ops.maxpool import MaxPool3d
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
 from vinet_tpu_torch.ops.upsample import upsample2x_hw
 from vinet_tpu_torch.parallel.collectives import all_gather
@@ -76,18 +76,6 @@ def _split_time(x: torch.Tensor, streams: int = 1) -> torch.Tensor:
     return both.reshape(2 * sp, *even.shape[1:])
 
 
-def dense_conv_t(conv: torch.nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """A temporal conv with its time stride forced to 1 (dense), on the
-    module's own weights."""
-    return F.conv3d(x, conv.weight, conv.bias, stride=(1, *conv.stride[1:]),
-                    padding=conv.padding)
-
-
-# the pools of streaming_pyramid that run dense in time (stride 1 in T)
-MAXP3_DENSE = MaxPool3d((3, 3, 3), (1, 2, 2), (1, 1, 1))
-MAXT4_DENSE = MaxPool3d((2, 1, 1), (1, 1, 1), 0)
-
-
 def streaming_pyramid(backbone, x: torch.Tensor):
     """x (S, 3, N, H, W) normalised, N % 8 == 0 -> phase timelines
     (y0 (8S, 1024, N/8, h0, w0), y1 (4S, 832, N/4, ...), y2 (2S, 480, N/2,
@@ -99,14 +87,12 @@ def streaming_pyramid(backbone, x: torch.Tensor):
     if x.shape[2] % 8:
         raise ValueError(f"timeline length must be a multiple of 8, got {x.shape[2]}")
     stem, pool, b1x1, sep192 = backbone.base1
-    y = stemconv.sep_spatial(stem, x)
-    y = torch.relu(stem.bn_t(dense_conv_t(stem.conv_t, y)))
-    y = _split_time(y, s)  # (2S, 64, N/2, ...)
+    y = _split_time(run_in_time(stem, x, "dense")[0], s)  # (2S, 64, N/2, ...)
     y3 = sep192(b1x1(pool(y)))
     y2 = backbone.base2(backbone.maxp2(y3))
-    y = _split_time(MAXP3_DENSE(y2), s)  # (4S, 480, N/4, ...)
+    y = _split_time(run_in_time(backbone.maxp3, y2, "dense")[0], s)  # (4S, 480, N/4, ...)
     y1 = backbone.base3(y)
-    y = _split_time(MAXT4_DENSE(y1), s)  # (8S, 832, N/8, ...)
+    y = _split_time(run_in_time(backbone.maxt4, y1, "dense")[0], s)  # (8S, 832, N/8, ...)
     y0 = backbone.base4(backbone.maxp4(y))
     return y0, y1, y2, y3
 

@@ -8,15 +8,19 @@ pyramid is
     y0: (B, 1024,  4,  7, 12)
 
 Every pool is ``ops/maxpool.py::MaxPool3d``: the index-free kernel on the
-card outside autograd, ``F.max_pool3d`` otherwise.
+card outside autograd, ``F.max_pool3d`` otherwise. ``run_in_time`` runs the
+backbone's modules with time stride 1, in the streaming and live paths' time
+forms.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vinet_tpu_torch.models.layers import BasicConv3d, SepConv3d
+from vinet_tpu_torch.ops import maxpool, stemconv
 from vinet_tpu_torch.ops.maxpool import MaxPool3d
 
 # Inception channel plan: in_ch -> (b0; b1_red->b1; b2_red->b2; pool->b3).
@@ -76,3 +80,46 @@ class S3DBackbone(nn.Module):
         y1 = self.base3(self.maxp3(y2))
         y0 = self.base4(self.maxp4(self.maxt4(y1)))
         return [y0, y1, y2, y3]
+
+
+def run_in_time(mod: nn.Module, x: torch.Tensor, form: str):
+    """Apply a backbone module with every time stride 1, in one of two time
+    forms: ``"dense"`` keeps the module's own time padding (the streaming
+    timelines), ``"valid"`` drops it (the live segments), so the output
+    loses the module's time radius at each end. Returns (y, radius), the
+    radius in input positions. The leaves take the routes of the modules'
+    forwards (``stemconv.sep_spatial``, ``maxpool.max_pool3d``)."""
+    if form not in ("dense", "valid"):
+        raise ValueError(f"form must be 'dense' or 'valid', got {form!r}")
+    dense = form == "dense"
+    if isinstance(mod, SepConv3d):
+        conv = mod.conv_t
+        y = F.conv3d(stemconv.sep_spatial(mod, x), conv.weight, conv.bias, stride=(1, 1, 1),
+                     padding=(conv.padding[0] if dense else 0, 0, 0))
+        return torch.relu(mod.bn_t(y)), conv.padding[0]
+    if isinstance(mod, nn.MaxPool3d):
+        k, s, p = (v if isinstance(v, tuple) else (v,) * 3
+                   for v in (mod.kernel_size, mod.stride, mod.padding))
+        if not (k[0] == 1 or p[0] or k[0] == 2):
+            raise ValueError(f"no valid time form for a max pool {k} with padding {p}")
+        return maxpool.max_pool3d(x, k, (1, *s[1:]), (p[0] if dense else 0, *p[1:])), p[0]
+    if isinstance(mod, (BasicConv3d, nn.Conv3d)):  # no time extent: the forms change nothing
+        conv = mod.conv if isinstance(mod, BasicConv3d) else mod
+        if (conv.kernel_size[0], conv.stride[0], conv.padding[0]) != (1, 1, 0):
+            raise ValueError(f"no time form for a conv with time kernel, stride and padding "
+                             f"{(conv.kernel_size[0], conv.stride[0], conv.padding[0])}")
+        return mod(x), 0
+    if isinstance(mod, nn.Sequential):
+        r = 0
+        for layer in mod:
+            x, ri = run_in_time(layer, x, form)
+            r += ri
+        return x, r
+    if isinstance(mod, InceptionBlock):
+        outs = [run_in_time(b, x, form) for b in (mod.branch0, mod.branch1, mod.branch2,
+                                                  mod.branch3)]
+        rmax = max(r for _, r in outs)
+        cut = [0 if dense else rmax - r for _, r in outs]  # to the widest radius
+        return torch.cat([y[:, :, c: y.shape[2] - c] for (y, _), c in zip(outs, cut)],
+                         dim=1), rmax
+    raise TypeError(f"run_in_time: unhandled module {type(mod).__name__}")

@@ -18,8 +18,7 @@ tensor, or another dtype, takes ``F.max_pool3d``. ``MaxPool3d`` is
 indices; any other setting keeps the module's own forward). It has no
 parameters, so state dicts are those of ``nn.MaxPool3d``.
 
-``launches`` counts the kernel's launches. ``USE_KERNEL`` set to False
-routes every call to ``F.max_pool3d`` (a comparison's switch).
+``launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -33,7 +32,6 @@ from torch import nn
 from vinet_tpu_torch.ops import build
 
 launches = 0  # kernel launches by max_pool3d_cuda; a run may reset it to 0
-USE_KERNEL = True
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -100,8 +98,7 @@ def max_pool3d_cuda(x: torch.Tensor, kernel, stride=None, padding=0) -> torch.Te
 def kernel_takes(x: torch.Tensor) -> bool:
     """Whether the kernel would take x on the card: bf16 or f32, and no
     autograd graph would record through it."""
-    return (USE_KERNEL and x.dtype in _DTYPES
-            and not (torch.is_grad_enabled() and x.requires_grad))
+    return x.dtype in _DTYPES and not (torch.is_grad_enabled() and x.requires_grad)
 
 
 def routes(x: torch.Tensor) -> bool:

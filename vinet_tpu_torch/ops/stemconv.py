@@ -149,10 +149,9 @@ def routes(sep: nn.Module, x: torch.Tensor) -> bool:
     return x.device.type == "cuda" and kernel_takes(sep, x)
 
 
-def sep_spatial(sep: nn.Module, x: torch.Tensor, conv=None) -> torch.Tensor:
+def sep_spatial(sep: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``relu(sep.bn_s(sep.conv_s(x)))``, the spatial half of a SepConv3d,
-    through the kernel where ``routes(sep, x)``. ``conv`` stands in for
-    ``sep.conv_s`` on the other route (the live path's valid-in-time form)."""
+    through the kernel where ``routes(sep, x)``."""
     if routes(sep, x):
         return stemconv(x, sep.conv_s.weight, sep.conv_s.bias)
-    return torch.relu(sep.bn_s((conv or sep.conv_s)(x)))
+    return torch.relu(sep.bn_s(sep.conv_s(x)))
