@@ -36,14 +36,20 @@ fails. Phases, each printing one JSON line:
    plain version and ``F.conv3d`` alone, and a window batch profiled with
    its route off and on, the stem inside a ``stem.conv_s`` range (which
    kernels it owns); ``stemconv`` must launch on the cli, streaming, live
-   and serve paths and never in a train step;
+   and serve paths and never in a train step. The ReLU + 2x upsample kernel
+   (``up2x``) at every UP2X_CASES shape (parity's three stages, the live AV
+   decode's conv1 and z3) against its plain version (``torch.relu`` then
+   ``F.interpolate``) in bf16 and f32, and in bf16 its time beside its bound
+   and the plain version's; ``relu_up2x`` must launch on the cli,
+   streaming, live and serve paths and never in a train step;
 4. model: the full-width ViNet(3, 32) with the committed fixture weights
    (``artifacts/streamft_fixture.npz``), BatchNorm folded, on a window batch
    of 16 clips of 32 x 224 x 384 in bf16, against f32 on the card, and f32 on
    the card against the CPU at a reduced input, its bf16 clips/s, and a
    profile of one bf16 window batch (FLOP count, device time by kernel,
-   the head's time, which must not be 0, and the upsample launches: 4, the
-   fifth is fused into the head);
+   the head's time, which must not be 0, and the upsample launches: 3 of
+   ``relu_up2x`` and none of ``upsample_trilinear3d``; conv5 folds the
+   fourth, the head the fifth);
 5. int8_model (the int8 path): the same model and window batch through
    ``make_inference_fn(dtype="int8")``, calibrated on the batch's first 2
    clips in f32; its clips/s and peak memory, int8 against bf16 on the card,
@@ -182,7 +188,7 @@ import time
 from portbench.core import HBM_BYTES_PER_S, PEAK_FLOPS
 
 FIXTURE = os.path.join("artifacts", "streamft_fixture.npz")
-KERNELS = ("saliency_head", "int8_mm", "tconv", "dconv", "maxpool3d", "stemconv")
+KERNELS = ("saliency_head", "int8_mm", "tconv", "dconv", "maxpool3d", "stemconv", "up2x")
 KERNEL_TOL = 1e-5  # kernel vs plain: same inputs, both accumulate in f32
 # (relative to the largest output for the GEMM kernels; int8 must be exact)
 CPU_TOL = 2e-3  # card f32 vs CPU f32: the port's parity anchor against JAX
@@ -200,8 +206,9 @@ INT8_MAX_TOL, INT8_MEAN_TOL, INT8_CC_MIN = 0.1, 0.01, 0.97
 # and then flips an int8 level; measured on the same card: max 0.0034, mean
 # 2.3e-6
 INT8_CPU_MAX_TOL, INT8_CPU_MEAN_TOL = 0.01, 1e-5
-# upsample_trilinear3d launches in a window batch: conv1-3's; conv5 folds the
-# fourth (ops/phasefold.py), the head the fifth
+# relu_up2x launches in a window batch: conv1-3's upsamples, with their
+# ReLUs; conv5 folds the fourth (ops/phasefold.py), the head the fifth, and
+# upsample_trilinear3d launches none
 UPSAMPLE_LAUNCHES = 3
 # folded conv vs upsample + conv in f32 on the card: the same f32 products
 # summed in other orders (up to 17,280 a sum), relative to the largest output
@@ -291,6 +298,9 @@ def phase_build() -> None:
             for fn, c in ops.items():
                 check("channels_last" in fn or (c["HGMMA"] > 0 and c["LDGSTS"] > 0),
                       f"dconv: {fn} lacks HGMMA or LDGSTS: {c}")
+        elif name == "up2x":  # a stencil: loads, f32 arithmetic, stores
+            for fn in ops:
+                check("relu_up2x" in fn, f"up2x: unexpected function {fn}")
         elif name != "saliency_head":  # the mma.sync GEMM kernels
             for fn, c in ops.items():
                 check(c["IMMA"] > 0 if "NS_4Int8E" in fn else c["HMMA"] > 0,  # element type
@@ -945,6 +955,69 @@ def phase_stemconv(torch) -> dict:
     return row
 
 
+# (name, x shape): the ReLU + 2x upsample at the main paths' shapes, 224 x
+# 384, bf16: parity's three stages (a window batch of 16) and the live AV
+# decode's two (conv1 and z3, 12 streams x 16 windows a feed)
+UP2X_CASES = [
+    ("parity_conv1", (16, 832, 4, 7, 12)),
+    ("parity_conv2", (16, 480, 4, 14, 24)),
+    ("parity_conv3", (16, 192, 4, 28, 48)),
+    ("live_conv1", (192, 832, 4, 7, 12)),
+    ("live_z3", (192, 192, 4, 28, 48)),
+]
+
+
+def phase_up2x(torch) -> dict:
+    """The ReLU + 2x upsample kernel at every UP2X_CASES shape against its
+    plain version (torch.relu then F.interpolate, the route before and the
+    library's yardstick) in bf16 and f32 (bf16 within one rounding step, f32
+    within 1e-6 relative), and in bf16 its time (inputs cycled past the L2)
+    beside its bound (input read and output written once) and the plain
+    version's. Returns the kernels-line row: parity's three stages summed."""
+    from vinet_tpu_torch.ops import upsample
+    from vinet_tpu_torch.tools.timing import cuda_ms
+
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for i, (case, xs) in enumerate(UP2X_CASES):
+        g = torch.Generator(device="cuda").manual_seed(i)
+        x32 = torch.randn(xs, generator=g, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            before = upsample.launches
+            got = upsample.relu_up2x_cuda(x)
+            torch.cuda.synchronize()
+            want = upsample.relu_up2x_plain(x)
+            if dtype == torch.bfloat16:  # outputs are >= 0: their bits are ordered
+                gap = int((got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max())
+                ok = gap <= 1
+            else:
+                ok = bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+            check(upsample.launches == before + 1 and got.shape == want.shape and ok,
+                  f"relu_up2x {case} {dtype}: not the plain version's values")
+            del got, want
+        del x32
+        torch.cuda.empty_cache()
+        nbytes = 2 * 5 * x.numel()
+        bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+        ms = _cold_ms(torch, upsample.relu_up2x_cuda, x, 20)
+        plain_ms = cuda_ms(lambda: upsample.relu_up2x_plain(x), 5)
+        rec = {"phase": "up2x", "case": case, "x": list(x.shape), "checked": ["bf16", "f32"],
+               "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+               "library": "torch.relu + F.interpolate (upsample_trilinear3d): the plain version",
+               "library_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "achieved_gb_per_s": nbytes / ms / 1e6, "roofline_pct": 100.0 * bound_ms / ms}
+        emit(rec)
+        if case.startswith("parity"):
+            totals = {key: totals[key] + rec[key] for key in totals}
+        del x
+        torch.cuda.empty_cache()
+    emit({"phase": "up2x_parity_window_batch", "stages": 3, **totals,
+          "roofline_pct": 100.0 * totals["bound_ms"] / totals["ms"]})
+    return {"name": "up2x", "route": "cuda", "source": "vinet_tpu_torch/csrc/up2x.cu",
+            "replaces": None, "case": "parity window batch, conv1-conv3's relu + upsample",
+            **totals, "library_ms": totals["plain_ms"], "bound_by": "bytes"}
+
+
 def _stem_attribution(torch) -> dict:
     """Device time of one bf16 window batch (16 x 32 x 224 x 384, a folded
     seeded ViNet(3, 32)) by kernel, the kernel's route off (the route before
@@ -1054,6 +1127,7 @@ def profile_device(torch, fn) -> dict:
                     if e.key == "aten::convolution"), key=lambda k: -k[1])
     return {"upsample_trilinear3d_launches": sum(n for k, _, n in kernels
                                                  if "upsample_trilinear3d" in k),
+            "relu_up2x_launches": sum(n for k, _, n in kernels if "relu_up2x" in k),
             "profiled_wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "device_idle_share": 1 - device_ms / wall_ms,
@@ -1135,25 +1209,29 @@ def phase_model(torch) -> None:
     check(cpu_err < CPU_TOL, f"card f32 vs CPU f32: max|err| {cpu_err}")
     check(head.launches_up2x > launches0[1], "the model's head did not launch the fused kernel")
     check(profile["kernel_ms"]["saliency_head"] > 0, "the bf16 profile credits no time to the head")
-    check(profile["upsample_trilinear3d_launches"] == UPSAMPLE_LAUNCHES,
-          f"{profile['upsample_trilinear3d_launches']} upsample launches in the bf16 window "
-          f"batch, expected {UPSAMPLE_LAUNCHES} (conv5 folds one, the head another)")
+    check(profile["upsample_trilinear3d_launches"] == 0
+          and profile["relu_up2x_launches"] == UPSAMPLE_LAUNCHES,
+          f"{profile['upsample_trilinear3d_launches']} library and "
+          f"{profile['relu_up2x_launches']} relu_up2x upsample launches in the bf16 window "
+          f"batch, expected 0 and {UPSAMPLE_LAUNCHES} (conv5 folds one, the head another)")
 
 
 def _launch_counts() -> dict:
-    from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, saliency_head, stemconv, tconv
+    from vinet_tpu_torch.ops import (dconv, int8_mm, maxpool, saliency_head, stemconv, tconv,
+                                     upsample)
 
     return {"saliency_head": saliency_head.launches,
             "saliency_head_up2x": saliency_head.launches_up2x, "int8_mm": int8_mm.launches,
             "tconv": tconv.launches, "dconv": dconv.launches, "maxpool3d": maxpool.launches,
-            "stemconv": stemconv.launches}
+            "stemconv": stemconv.launches, "up2x": upsample.launches}
 
 
 def _reset_launch_counts() -> None:
-    from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, saliency_head, stemconv, tconv
+    from vinet_tpu_torch.ops import (dconv, int8_mm, maxpool, saliency_head, stemconv, tconv,
+                                     upsample)
 
     saliency_head.launches = saliency_head.launches_up2x = int8_mm.launches = tconv.launches = 0
-    dconv.launches = maxpool.launches = stemconv.launches = 0
+    dconv.launches = maxpool.launches = stemconv.launches = upsample.launches = 0
 
 
 def _map_cc(torch, a, b) -> tuple:
@@ -1913,6 +1991,7 @@ def phase_train(torch, card: str, keep_checkpoint: str) -> dict:
     check(step_launches["saliency_head"] == 0, f"the train steps launched the head: {step_launches}")
     check(step_launches["dconv"] == 0, f"the train steps launched dconv: {step_launches}")
     check(step_launches["stemconv"] == 0, f"the train steps launched stemconv: {step_launches}")
+    check(step_launches["up2x"] == 0, f"the train steps launched relu_up2x: {step_launches}")
     _require_head(eval_launches, "the eval step")
     check(all(guard.values()), f"autograd guard: {guard}")
     check(cpu_loss_err <= TRAIN_CPU_LOSS_TOL and cpu_l2 <= TRAIN_CPU_GRAD_L2_TOL,
@@ -3176,7 +3255,7 @@ def main() -> int:
     phase_build()
     rows = {"saliency_head": phase_head_kernel(torch), **phase_gemm_kernels(torch),
             "dconv": phase_dconv(torch), "maxpool3d": phase_maxpool(torch),
-            "stemconv": phase_stemconv(torch)}
+            "stemconv": phase_stemconv(torch), "up2x": phase_up2x(torch)}
     torch.cuda.empty_cache()
     phase_model(torch)
     int8_launches = phase_int8_model(torch)
@@ -3208,7 +3287,7 @@ def main() -> int:
     # launches: the head's on the CLI (bf16 main path), the GEMM kernels' on
     # the int8 path; each path was read with the counts set to 0 before it
     for name, row in rows.items():
-        bf16_path = name in ("saliency_head", "dconv", "maxpool3d", "stemconv")
+        bf16_path = name in ("saliency_head", "dconv", "maxpool3d", "stemconv", "up2x")
         row["launches"] = (cli_launches if bf16_path else int8_launches)[name]
     rows["saliency_head"]["launches_up2x"] = cli_launches["saliency_head_up2x"]
     rows["saliency_head"]["launches_by_path"] = {p: c["saliency_head_up2x"]
@@ -3218,6 +3297,9 @@ def main() -> int:
     rows["stemconv"]["launches_by_path"] = stem = {p: c.get("stemconv") for p, c in paths.items()}
     check(all(stem[p] for p in ("cli", "streaming", "live", "serve")) and stem["train_steps"] == 0,
           f"stemconv launches by path: {stem}")
+    rows["up2x"]["launches_by_path"] = up = {p: c.get("up2x") for p, c in paths.items()}
+    check(all(up[p] for p in ("cli", "streaming", "live", "serve")) and up["train_steps"] == 0,
+          f"relu_up2x launches by path: {up}")
     emit({"kernels": [rows[name] for name in KERNELS]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

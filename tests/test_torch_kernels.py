@@ -14,7 +14,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from vinet_tpu_torch.ops import dconv, int8_mm, maxpool, quant, saliency_head, stemconv, tconv
+from vinet_tpu_torch.ops import (dconv, int8_mm, maxpool, quant, saliency_head, stemconv, tconv,
+                                 upsample)
 
 torch.set_num_threads(2)
 
@@ -763,6 +764,199 @@ def test_train_step_launches_no_stemconv_on_card(cuda):
     assert stemconv.launches == before and bool(torch.isfinite(torch.as_tensor(out["loss"])))
 
 
+# (name, x shape): the ReLU + 2x upsample at the main paths' shapes (224 x
+# 384, bf16 in the model): parity's three stages (a window batch of 16),
+# the live AV decode's conv1 and z3 (12 streams x 16 windows) and the
+# streaming dense front's c1u (a 128-frame chunk with its halo)
+UP2X_SHAPES = [
+    ("parity_conv1", (16, 832, 4, 7, 12)),
+    ("parity_conv2", (16, 480, 4, 14, 24)),
+    ("parity_conv3", (16, 192, 4, 28, 48)),
+    ("live_conv1", (192, 832, 4, 7, 12)),
+    ("live_z3", (192, 192, 4, 28, 48)),
+    ("streaming_c1u", (8, 832, 30, 7, 12)),
+]
+# edges: H or W of 1, 2, 3; one plane; runs that do not fill the last unit;
+# 2W not a multiple of 8 or 4 (narrow stores); planes larger than a unit
+# (bands of rows, with and without a ragged last band)
+UP2X_EDGES = [(2, 3, 2, 1, 5), (2, 3, 2, 5, 1), (1, 4, 3, 2, 2), (1, 4, 3, 3, 3),
+              (1, 1, 1, 7, 12), (1, 7, 3, 7, 12), (3, 5, 7, 5, 7), (2, 3, 2, 9, 6),
+              (1, 2, 1, 100, 80), (1, 2, 3, 61, 96), (1, 1, 1, 1, 1)]
+
+
+def _up1d(x, dim):
+    """x doubled along dim, half-pixel centres clamped at the ends: output 2i
+    = 0.25 x[i - 1] + 0.75 x[i] (x[0] at i = 0), 2i + 1 = 0.75 x[i] + 0.25
+    x[i + 1] (x[n - 1] at the end)."""
+    n = x.shape[dim]
+    i = torch.arange(n, device=x.device)
+    prev = x.index_select(dim, (i - 1).clamp(min=0))
+    nxt = x.index_select(dim, (i + 1).clamp(max=n - 1))
+    return torch.stack([0.25 * prev + 0.75 * x, 0.75 * x + 0.25 * nxt], dim + 1).flatten(dim,
+                                                                                      dim + 1)
+
+
+def _up2x_f64(x):
+    """relu then the upsample in float64, rounded once to x's dtype: each
+    output from the inputs it weighs, so a NaN reaches only those and an
+    infinity stays infinite (PyTorch's kernel also adds terms of weight 0,
+    which turn both into NaN elsewhere)."""
+    return _up1d(_up1d(torch.relu(x.double()), 3), 4).to(x.dtype)
+
+
+def _assert_up2x_matches(x, want=None):
+    """The kernel against the library's result (finite x) or ``_up2x_f64``
+    on the card: in bf16 within one rounding step (outputs are >= 0, so their
+    bits are ordered), in f32 within 1e-6 relative; NaN and infinities where
+    the reference has them."""
+    before = upsample.launches
+    got = upsample.relu_up2x_cuda(x)
+    torch.cuda.synchronize()
+    assert upsample.launches == before + 1 and got.is_contiguous()
+    want = _up2x_f64(x) if want is None else want
+    assert got.dtype == want.dtype == x.dtype and got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    finite = torch.isfinite(want)
+    assert torch.equal(got[~finite].nan_to_num(), want[~finite].nan_to_num())
+    got, want = got[finite], want[finite]
+    if x.dtype == torch.bfloat16:
+        steps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+        assert int((steps > 1).sum()) == 0, int(steps.max())
+    else:
+        assert int(((got - want).abs() > 1e-6 * want.abs()).sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,shape", UP2X_SHAPES, ids=[c[0] for c in UP2X_SHAPES])
+def test_up2x_kernel_matches_the_library_on_card(cuda, name, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)  # half of it below 0
+    want = F.interpolate(torch.relu(x), scale_factor=(1, 2, 2), mode="trilinear",
+                         align_corners=False)
+    _assert_up2x_matches(x, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", UP2X_EDGES)
+def test_up2x_kernel_edge_shapes_on_card(cuda, shape, dtype):
+    """Edge shapes; then NaN and infinities among the values; then x one
+    element past an aligned address (element staging)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    _assert_up2x_matches(x)
+    flat = x.view(-1)
+    for v in (float("nan"), float("inf"), float("-inf")):
+        flat[torch.randint(0, flat.numel(), (max(1, flat.numel() // 50),), generator=g,
+                           device=cuda)] = v
+    _assert_up2x_matches(x)
+    odd = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(shape)
+    odd.copy_(x)
+    _assert_up2x_matches(odd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_up2x_kernel_reads_strided_inputs_on_card(cuda, dtype):
+    """A slice along T, windows gathered with T outside C (the live
+    decode's), and H and W not contiguous (copied first); one NaN."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    base = torch.randn((3, 6, 9, 7, 12), generator=g, device=cuda).to(dtype)
+    base[1, 2, 4, 3, 5] = float("nan")
+    for x in (base[:, :, 2:6], base.transpose(1, 2).contiguous().transpose(1, 2),
+              base.transpose(3, 4)):
+        assert not x.is_contiguous()
+        _assert_up2x_matches(x)
+    got = upsample.relu_up2x_cuda(base[:, :, 2:6])
+    assert int(torch.isnan(got).sum()) == 16  # the NaN's 4 x 4 outputs, its slice alone
+
+
+@pytest.mark.gpu
+def test_up2x_route_on_card(cuda):
+    """A CUDA tensor outside autograd and autocast launches the kernel; one
+    that autograd records keeps the plain version and gets its gradient; f16
+    and autocast keep the plain version."""
+    x = torch.randn((2, 3, 4, 7, 12), device=cuda)
+    before = upsample.launches
+    with torch.no_grad():
+        got = upsample.relu_up2x(x)
+    assert upsample.launches == before + 1
+    _assert_up2x_matches(x, got)
+    xg = x.clone().requires_grad_()
+    upsample.relu_up2x(xg).square().sum().backward()
+    xf = x.clone().requires_grad_()
+    upsample.relu_up2x_plain(xf).square().sum().backward()
+    # the library's upsample backward sums with atomics, in no fixed order
+    torch.testing.assert_close(xg.grad, xf.grad, rtol=1e-6, atol=1e-6)
+    upsample.relu_up2x(x.half())
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        auto = upsample.relu_up2x(xb)
+        plain = F.interpolate(torch.relu(xb), scale_factor=(1, 2, 2), mode="trilinear",
+                              align_corners=False)
+    assert auto.dtype == plain.dtype and torch.equal(auto, plain)
+    assert upsample.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_parity_window_batch_takes_relu_up2x_on_card(cuda, monkeypatch):
+    """One parity window batch (16 clips of 32 x 224 x 384, bf16, seeded
+    random weights) through SlidingWindowPredictor.run_batch launches the
+    kernel 3 times (conv1-conv3) and no library upsample, and its maps are
+    those of the route off within a grey level on average (the two round
+    the upsample's outputs apart by up to a bf16 step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vinet_tpu_torch.inference import SlidingWindowPredictor
+    from vinet_tpu_torch.models import ViNet
+
+    torch.manual_seed(0)
+    pred = SlidingWindowPredictor(ViNet(3, 32), batch=16, device=cuda)
+    frames = torch.from_numpy(np.random.default_rng(10).integers(
+        0, 256, (47, 224, 384, 3), dtype=np.uint8)).to(cuda)
+    idx = (torch.arange(16)[:, None] + torch.arange(32)[None]).to(cuda)
+
+    def run():
+        before = upsample.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            maps = pred.run_batch(frames, idx, (360, 640), True)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        library = sum(e.count for e in prof.key_averages() if "upsample_trilinear3d" in e.key)
+        return maps, upsample.launches - before, library, names
+
+    run()  # warm-up: the kernels' builds and cuDNN's choices
+    got, launched, library, names = run()
+    monkeypatch.setattr(upsample, "routes", lambda x: False)
+    want, launched_off, library_off, _ = run()
+    assert (launched, launched_off) == (3, 0) and (library, library_off) == (0, 3)
+    assert any("relu_up2x" in k for k in names)
+    gap = (got.float() - want.float()).abs()
+    print("parity maps, relu_up2x vs route off: mean", float(gap.mean()), "max", float(gap.max()))
+    assert got.shape == want.shape == (16, 360, 640) and float(gap.mean()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_train_step_launches_no_relu_up2x_on_card(cuda):
+    """A bf16 autocast train step of ViNet keeps relu and F.interpolate, and
+    their backward, for the decoder's stages."""
+    from vinet_tpu_torch.models import ViNet
+    from vinet_tpu_torch.training import LossConfig
+    from vinet_tpu_torch.training.trainer import init_train_state, make_train_step
+
+    torch.manual_seed(0)
+    ts = init_train_state(ViNet(3, 32).to(cuda))
+    step = make_train_step(LossConfig(), compute_dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"clip": torch.randn((2, 32, 64, 64, 3), generator=g, device=cuda),
+             "gt": torch.rand((2, 64, 64), generator=g, device=cuda)}
+    before = upsample.launches
+    ts, out = step(ts, batch)
+    torch.cuda.synchronize()
+    assert upsample.launches == before and bool(torch.isfinite(torch.as_tensor(out["loss"])))
+
+
 # (kernel, stride, padding, Cin, Cout): every conv kind of the int8 model, as
 # in tests/torch_port_util.py, which this file does not import so that it
 # runs alone where JAX is absent
@@ -913,20 +1107,21 @@ def _grad_entry_calls(device):
             "tconv_cuda": lambda: tconv.tconv_cuda(x, w, 1),
             "dconv_cuda": lambda: dconv.dconv_cuda(xd, wd),
             "max_pool3d_cuda": lambda: maxpool.max_pool3d_cuda(xd.detach().requires_grad_(), 3),
-            "stemconv_cuda": lambda: stemconv.stemconv_cuda(xs, ws, bs)}
+            "stemconv_cuda": lambda: stemconv.stemconv_cuda(xs, ws, bs),
+            "relu_up2x_cuda": lambda: upsample.relu_up2x_cuda(xd.detach().requires_grad_())}
 
 
 def _assert_refuses_autograd(entry, call):
     before = (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches,
-              maxpool.launches, stemconv.launches)
+              maxpool.launches, stemconv.launches, upsample.launches)
     with pytest.raises(RuntimeError, match=f"{entry} has no backward"):
         call()
     assert (saliency_head.launches, int8_mm.launches, tconv.launches, dconv.launches,
-            maxpool.launches, stemconv.launches) == before
+            maxpool.launches, stemconv.launches, upsample.launches) == before
 
 
 CUDA_ENTRIES = ["saliency_head_cuda", "saliency_head_up2x_cuda", "int8_mm_cuda", "tconv_cuda",
-                "dconv_cuda", "max_pool3d_cuda", "stemconv_cuda"]
+                "dconv_cuda", "max_pool3d_cuda", "stemconv_cuda", "relu_up2x_cuda"]
 
 
 @pytest.mark.parametrize("entry", CUDA_ENTRIES)

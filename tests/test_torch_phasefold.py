@@ -155,7 +155,7 @@ def test_plans_without_conv6_take_the_head_with_identity_conv6(key, monkeypatch)
     the head the fifth."""
     _, _, port = _decoder_pair(key)
     calls, ups = [], []
-    plain_head, plain_up = head.saliency_head_up2x, decoder_module.upsample2x_hw
+    plain_head, plain_up = head.saliency_head_up2x, decoder_module.relu_up2x
 
     def spy_head(z5, w6, b6, w7, b7):
         calls.append((tuple(z5.shape), z5.is_contiguous(), b6 is None,
@@ -167,7 +167,7 @@ def test_plans_without_conv6_take_the_head_with_identity_conv6(key, monkeypatch)
         return plain_up(x)
 
     monkeypatch.setattr(head, "saliency_head_up2x", spy_head)
-    monkeypatch.setattr(decoder_module, "upsample2x_hw", spy_up)
+    monkeypatch.setattr(decoder_module, "relu_up2x", spy_up)
     pyr = _pyramid(key[1], batch=1)
     with torch.no_grad():
         out = port([torch.from_numpy(ndhwc_to_ncdhw(y)) for y in pyr])

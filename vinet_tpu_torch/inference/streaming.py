@@ -49,7 +49,7 @@ from vinet_tpu_torch.models.s3d import run_in_time
 from vinet_tpu_torch.ops import dconv
 from vinet_tpu_torch.ops.image import gaussian_blur, quantize_maps_u8, resize_bilinear
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
-from vinet_tpu_torch.ops.upsample import upsample2x_hw
+from vinet_tpu_torch.ops.upsample import relu_up2x
 from vinet_tpu_torch.parallel.collectives import all_gather
 from vinet_tpu_torch.parallel.mesh import batch_slice, gather_batch
 
@@ -230,11 +230,12 @@ def decode_windows_v2(decoder, timelines, dense, starts: torch.Tensor,
     The up-mixing taps read the 2x-upsampled z2 and z3. conv3's run folded
     with that upsample, as in the JAX package; conv4's run on the upsampled
     z3, which on the H100 measured faster than its folded conv there
-    (``PERF.md``). The decoder's convs carry no bias, so partial sums add
-    exactly before each ReLU. fold3: ``fold_decoder(decoder)``, made here if
-    not given. y0_fused: the windows' own y0 (S·Bw, 1024, 4, h0, w0), which
-    conv1 then takes in place of the dense c1u (AViNet). Returns (S·Bw, H, W)
-    maps in the timelines' dtype."""
+    (``PERF.md``), z3's ReLU and upsample through ``relu_up2x``. The
+    decoder's convs carry no bias, so partial sums add exactly before each
+    ReLU. fold3: ``fold_decoder(decoder)``, made here if not given.
+    y0_fused: the windows' own y0 (S·Bw, 1024, 4, h0, w0), which conv1 then
+    takes in place of the dense c1u (AViNet). Returns (S·Bw, H, W) maps in
+    the timelines' dtype."""
     fold3 = fold_decoder(decoder) if fold3 is None else fold3
     _, y1t, y2t, y3t = timelines
     c1u, c2y, c3y, c4y = dense
@@ -256,9 +257,9 @@ def decode_windows_v2(decoder, timelines, dense, starts: torch.Tensor,
     t0 = (fold3(z2)
           + valid_tconv(_gather(y2t, 2, p1, s1, 1), w3[:, :, 4:5]))
     t123 = _gather(c3y, 2, p1, s1, 3, first=1, step=5)  # rows 1, 6, 11
-    z3 = torch.relu(torch.cat([t0, t123], dim=2))
+    z3 = torch.cat([t0, t123], dim=2)  # before its ReLU, which relu_up2x takes in
 
-    t0 = (valid_tconv(upsample2x_hw(z3), w4[:, :, 0:4])
+    t0 = (valid_tconv(relu_up2x(z3), w4[:, :, 0:4])
           + valid_tconv(_gather(y3t, 2, p1, s1, 1), w4[:, :, 4:5]))
     t123 = _gather(c4y, 2, p1, s1, 3, first=1, step=5)
     z4 = torch.relu(torch.cat([t0, t123], dim=2))

@@ -20,7 +20,13 @@ conv1-conv3 (in both modes) and, in eval mode, conv4 and conv5's folded
 conv take ``ops/dconv.py``'s route: the hand-written bf16 kernel on the card
 for a bf16 tensor outside autograd, ``F.conv3d`` otherwise (f32, or an
 autograd graph, as in a train step); on the CPU its plain version, which is
-``F.conv3d``.
+``F.conv3d``. The ReLU and 2x upsample after conv1-conv3 (in both modes)
+take ``ops/upsample.py::relu_up2x``'s route: one hand-written kernel on the
+card for a bf16 or f32 tensor outside autograd and autocast,
+``upsample2x_hw(relu(.))`` otherwise (a train step, an autocast region, the
+CPU). The stages' ``nn.ReLU`` and ``Upsample2x`` modules have
+no parameters and stay in their ``Sequential``s, which keeps the state-dict
+names.
 
 In training mode (``self.training``) the decoder runs the JAX package's own
 ``train=True`` graph instead (``vinet_tpu/models/decoder.py:141-161``):
@@ -40,7 +46,7 @@ from torch import nn
 from vinet_tpu_torch.ops import dconv
 from vinet_tpu_torch.ops import saliency_head as head
 from vinet_tpu_torch.ops.phasefold import FoldedConvUp2x
-from vinet_tpu_torch.ops.upsample import upsample2x_hw
+from vinet_tpu_torch.ops.upsample import relu_up2x, upsample2x_hw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +88,9 @@ def decoder_plan(num_hier: int = 3, clip_size: int = 32) -> DecoderPlan:
 
 def run_stage(stage: nn.Sequential, z: torch.Tensor) -> torch.Tensor:
     """conv -> ReLU -> 2x upsample of stage i (``convtsp1`` ... ``convtsp3``),
-    the conv through ``dconv.conv_module``'s route."""
-    return stage[2](stage[1](dconv.conv_module(stage[0], z)))
+    the conv through ``dconv.conv_module``'s route, the ReLU and upsample
+    through ``relu_up2x``'s."""
+    return relu_up2x(dconv.conv_module(stage[0], z))
 
 
 class Upsample2x(nn.Module):
