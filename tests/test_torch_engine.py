@@ -213,3 +213,51 @@ def test_predictors_leave_the_callers_model_untouched(kind):
     assert sorted(after) == sorted(before)
     for k, v in before.items():
         assert after[k].dtype == v.dtype and torch.equal(after[k], v), k
+
+
+def test_graph_replay_captures_once_per_shape_and_steps_aside_for_the_profiler(monkeypatch):
+    """With graphs on, the forward is captured at the first call of each
+    input shape and replayed after each call's inputs are copied into the
+    capture's; while a profiler records, the model runs op by op. A stand-in
+    for the CUDA graph recomputes the captured call on replay, so the CPU
+    checks the predictor's side of it; ``--cuda_graph`` reaches it through
+    ``make_predictor`` and is ignored off a card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vinet_tpu_torch.cli.generate_result import build_parser, make_predictor
+    from vinet_tpu_torch.inference import engine
+
+    captured, replays = [], []
+
+    class Replay:
+        def __init__(self, model, static, out):
+            self.model, self.static, self.out = model, static, out
+
+        def replay(self):
+            replays.append(1)
+            self.out.copy_(self.model(*self.static))
+
+    def capture(model, inputs):
+        captured.append(tuple(x.shape for x in inputs))
+        static = tuple(x.clone() for x in inputs)
+        out = model(*static)
+        return Replay(model, static, out), static, out
+
+    monkeypatch.setattr(engine, "_capture", capture)
+    pred = SlidingWindowPredictor(_TorchStub(), device="cpu", graphs=True)
+    assert pred.graphs is None  # ignored off a card
+    pred.graphs = {}
+    g = torch.Generator().manual_seed(0)
+    xs = [torch.randn(shape, generator=g) for shape in [(2, 4, 6, 5, 3)] * 3 + [(3, 4, 6, 5, 3)]]
+    got = [pred._forward(x).clone() for x in xs]
+    for x, y in zip(xs, got):
+        torch.testing.assert_close(y, _TorchStub()(x), rtol=0, atol=0)
+    assert captured == [((2, 4, 6, 5, 3),), ((3, 4, 6, 5, 3),)] and len(replays) == 4
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch.testing.assert_close(pred._forward(xs[0]), _TorchStub()(xs[0]), rtol=0, atol=0)
+    assert len(replays) == 4
+
+    args = ["--path_indata", "-", "--save_path", "-", "--device", "cpu", "--num_hier", "3"]
+    assert not build_parser().parse_args(args).cuda_graph
+    flagged = build_parser().parse_args([*args, "--cuda_graph"])
+    assert flagged.cuda_graph and make_predictor(flagged).graphs is None

@@ -1137,3 +1137,57 @@ def test_cuda_entries_refuse_autograd_on_card(cuda, entry):
     _assert_refuses_autograd(entry, _grad_entry_calls(cuda)[entry])
     with torch.no_grad():  # the same inputs without a graph launch as before
         _grad_entry_calls(cuda)[entry]()
+
+
+@pytest.mark.gpu
+def test_predict_video_fetch_on_card_matches_the_cpu(cuda, monkeypatch):
+    """SlidingWindowPredictor.predict_video on the card, whose map groups
+    come back through pinned memory one group behind the computation, yields
+    the CPU predictor's frames in the same order and its maps (f32, TF32
+    off; 80 frames in 20 window batches of 4, so several groups are in
+    flight), for ViNet and for TASEDv2."""
+    from vinet_tpu_torch.inference import SlidingWindowPredictor
+    from vinet_tpu_torch.models import TASEDv2, ViNet
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    frames = np.random.default_rng(9).integers(0, 256, (80, 32, 64, 3), dtype=np.uint8)
+    for model in (ViNet(3, 32), TASEDv2()):
+        torch.manual_seed(0)
+        kw = dict(clip_size=32, batch=4, dtype=torch.float32)
+        want = list(SlidingWindowPredictor(model, device="cpu", **kw).predict_video(frames))
+        got = list(SlidingWindowPredictor(model, device=cuda, **kw).predict_video(frames))
+        assert [f for f, _ in got] == [f for f, _ in want]
+        np.testing.assert_allclose(np.stack([m for _, m in got]),
+                                   np.stack([m for _, m in want]), atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_graph_replay_on_card_matches_op_by_op(cuda):
+    """SlidingWindowPredictor with graphs captures the forward once for the
+    window batch's shape, replays it, and yields the op-by-op predictor's
+    frames and uint8 maps (bf16, 80 frames in 10 window batches of 8), for
+    ViNet and TASEDv2; under a profiler it runs op by op again, so the pool
+    kernel's launch counter moves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vinet_tpu_torch.inference import SlidingWindowPredictor
+    from vinet_tpu_torch.models import TASEDv2, ViNet
+    from vinet_tpu_torch.ops import maxpool
+
+    frames = np.random.default_rng(9).integers(0, 256, (80, 32, 64, 3), dtype=np.uint8)
+    for model in (ViNet(3, 32), TASEDv2()):
+        torch.manual_seed(0)
+        kw = dict(clip_size=32, batch=8, device=cuda)
+        want = list(SlidingWindowPredictor(model, **kw).predict_video(frames, quantize_u8=True))
+        pred = SlidingWindowPredictor(model, graphs=True, **kw)
+        got = list(pred.predict_video(frames, quantize_u8=True))
+        assert len(pred.graphs) == 1
+        assert [f for f, _ in got] == [f for f, _ in want]
+        np.testing.assert_array_equal(np.stack([m for _, m in got]),
+                                      np.stack([m for _, m in want]))
+        before = maxpool.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            again = list(pred.predict_video(frames, quantize_u8=True))
+        assert maxpool.launches > before
+        np.testing.assert_array_equal(np.stack([m for _, m in again]),
+                                      np.stack([m for _, m in want]))

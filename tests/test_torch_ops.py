@@ -118,6 +118,21 @@ def test_gaussian_blur_matches_jax(shape):
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
+def test_blur_index_and_imagenet_stats_are_made_once_per_device():
+    """The blur's reflect index and the normalisation's mean and std are
+    made once for a (shape, device) and reused: a fresh upload would wait
+    for the card's queue to drain at every window batch."""
+    x = torch.rand(2, 20, 30)
+    image.gaussian_blur(x)
+    image.normalize_imagenet(x[..., None].expand(2, 20, 30, 3))
+    blur, stats = image._reflect101_index.cache_info(), image._imagenet_stats.cache_info()
+    y = image.gaussian_blur(x)
+    image.normalize_imagenet(x[..., None].expand(2, 20, 30, 3))
+    assert image._reflect101_index.cache_info().hits == blur.hits + 2  # one index an axis
+    assert image._imagenet_stats.cache_info().hits == stats.hits + 1
+    assert torch.equal(y, image.gaussian_blur(x))
+
+
 @pytest.mark.parametrize("src,dst", [((14, 24), (30, 50)), ((40, 60), (17, 23)),
                                      ((16, 24), (16, 48))])
 def test_resize_bilinear_matches_jax(src, dst):

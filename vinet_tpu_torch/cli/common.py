@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: boolean and model flags, model building (ViNet or
-AViNet) with weights, sharding."""
+"""Shared CLI plumbing: boolean and model flags, model building (ViNet,
+AViNet or TASEDv2) with weights, sharding."""
 
 from __future__ import annotations
 
@@ -8,7 +8,10 @@ import argparse
 import torch
 
 from vinet_tpu_torch.io.weights import load_model_weights
-from vinet_tpu_torch.models import AViNet, ViNet
+from vinet_tpu_torch.models import AViNet, TASEDv2, ViNet
+from vinet_tpu_torch.models.tased import TASED_CLIP
+
+MODELS = ("vinet", "tased")  # --model: the visual model of a CLI that offers the choice
 
 
 def str2bool(v) -> bool:
@@ -52,13 +55,22 @@ def model_input_size(args) -> tuple:
 
 
 def build_model(args):
-    """ViNet, or AViNet for --use_sound True, for the flags, with
-    --file_weight loaded strictly (an S3D Kinetics-400 file into the
-    backbone alone, a SoundNet file into AViNet's audionet alone); without
-    weights (the string "None" included, as reference command lines pass
-    it), a random init from seed 0."""
+    """ViNet, AViNet for --use_sound True, or TASEDv2 for --model tased, for
+    the flags, with --file_weight loaded strictly (an S3D Kinetics-400 file
+    into ViNet's backbone alone, a SoundNet file into AViNet's audionet
+    alone); without weights (the string "None" included, as reference
+    command lines pass it), a random init from seed 0. TASEDv2 refuses a
+    clip other than 32, --use_sound and int8."""
     torch.manual_seed(0)
-    if getattr(args, "use_sound", False):
+    if getattr(args, "model", "vinet") == "tased":
+        if args.clip_size != TASED_CLIP:
+            raise ValueError(f"--model tased takes --clip_size {TASED_CLIP}, got {args.clip_size}")
+        if getattr(args, "use_sound", False):
+            raise ValueError("--model tased is visual only: it takes no --use_sound")
+        if getattr(args, "dtype", None) == "int8":
+            raise ValueError("--model tased has no int8 path")
+        model = TASEDv2()
+    elif getattr(args, "use_sound", False):
         model = AViNet(use_transformer=args.use_transformer,
                        transformer_in_channel=args.transformer_in_channel,
                        num_encoder_layers=args.num_encoder_layers, nhead=args.nhead,

@@ -8,6 +8,10 @@ frame's own file name. Windows run --window_batch at a time with BatchNorm
 folded, in --dtype, on --device (default cuda; asking for cuda without a card
 raises).
 
+--model tased runs TASEDv2 (``models/tased.py``) through the same windows
+and post ops instead of ViNet. --cuda_graph replays the model's forward as a
+CUDA graph (``inference/engine.py``): the same maps for fewer host launches.
+
 --streaming runs the backbone once per --chunk frames instead of once per
 window (``inference/streaming.py``); --live feeds the frames --live_micro at
 a time to the live server (``inference/live.py``), which emits each map with
@@ -24,6 +28,8 @@ Usage:
   python -m vinet_tpu_torch.cli.generate_result --path_indata DIR \
       --save_path OUT --file_weight ViNet_DHF1K.pt [--device cuda] \
       [--streaming [--chunk 128] | --live [--live_micro 16]]
+  python -m vinet_tpu_torch.cli.generate_result --model tased --path_indata DIR \
+      --save_path OUT --file_weight tased_state_dict.pt
 On N cards of one host:
   torchrun --standalone --nproc_per_node N -m vinet_tpu_torch.cli.generate_result \
       --data_parallel --path_indata DIR --save_path OUT ...
@@ -43,7 +49,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_parser():
-    from vinet_tpu_torch.cli.common import add_model_args
+    from vinet_tpu_torch.cli.common import MODELS, add_model_args
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -82,6 +88,12 @@ def build_parser():
                         "world (exact; rank 0 writes the maps)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda unless asked for cpu")
+    p.add_argument("--cuda_graph", action="store_true",
+                   help="sliding windows on a card: replay the model's forward as a CUDA "
+                        "graph, captured at the first window batch (same maps, fewer "
+                        "host launches)")
+    p.add_argument("--model", type=str, default="vinet", choices=MODELS,
+                   help="the visual model: ViNet, or TASEDv2 (clip 32, sliding windows only)")
     add_model_args(p)
     return p
 
@@ -120,7 +132,7 @@ def make_predictor(args, mesh=None):
         return StreamingPredictor(build_model(args), batch=args.window_batch,
                                   chunk=args.chunk, mesh=mesh, **common)
     return SlidingWindowPredictor(build_model(args), batch=args.window_batch, mesh=mesh,
-                                  **common)
+                                  graphs=args.cuda_graph, **common)
 
 
 def emit_maps(predictor, args, clip_u8: np.ndarray, out_size: tuple):
@@ -186,6 +198,8 @@ def main(argv=None):
         parser.error("--live excludes --streaming, --pad_short and --data_parallel")
     if args.use_sound:
         parser.error("--use_sound True: AViNet runs in generate_result_audio_visual")
+    if args.model == "tased" and (args.streaming or args.live):
+        parser.error("--model tased runs the sliding windows only: no --streaming or --live")
     return run(args)
 
 

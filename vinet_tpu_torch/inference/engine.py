@@ -10,6 +10,17 @@ A video's frames go to the device once, as uint8; windows are gathered there
 by index (a flipped window is its index row reversed) and run ``batch`` at a
 time: normalise, model, resize every map to the native size, Gaussian blur
 and optionally quantise to uint8. The host only decodes and encodes PNGs.
+Maps come back FETCH_EVERY batches at a time; on a card a group's copy runs
+into pinned memory while the next group is computed, and nothing between
+(the index upload, the post ops' constants) waits for the device's queue.
+
+With ``graphs`` on a card, the model's forward is a CUDA graph: captured at
+the first window batch of each input shape, then replayed, so a window
+batch costs the host a few launches instead of one for each of the model's
+kernels. While a profiler records, the forward runs op by op, so spans and
+launch counters see every layer; the kernels and their order are the same.
+A replay launches what the capture recorded, and the counters count the
+capture's calls, not the replays.
 
 For AViNet, ``audio_fn(start)`` gives each window its (L, 1) excerpt: on the
 device it is cast to the compute dtype and, for a warm-up window, reversed
@@ -54,6 +65,34 @@ def prepared_copy(model: torch.nn.Module, dtype: torch.dtype, device) -> torch.n
     return cast_floating(fold_batchnorms(model), dtype).to(device)
 
 
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """a on device; to a card from pinned memory without waiting, so the
+    host keeps ahead of the queue (a pageable copy waits for it to drain)."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _capture(model: torch.nn.Module, inputs: tuple) -> tuple:
+    """(graph, static inputs, static output) of model(*inputs) captured as a
+    CUDA graph, after one call on a side stream that sets up the libraries'
+    plans and workspaces, as capture asks; then one call op by op on the
+    current stream, whose memory stays cached for the forwards that run op
+    by op under a profiler."""
+    static = tuple(x.clone() for x in inputs)
+    side = torch.cuda.Stream(static[0].device)
+    side.wait_stream(torch.cuda.current_stream(static[0].device))
+    with torch.cuda.stream(side):
+        model(*static)
+    torch.cuda.current_stream(static[0].device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = model(*static)
+    model(*static)
+    return graph, static, out
+
+
 def window_plan(n_frames: int, clip_size: int, *, pad_short: bool = False) -> list:
     """All (out_frame, start, flipped) windows for a video, in the reference's
     emission order. Returns [] for videos that are too short without padding."""
@@ -71,14 +110,17 @@ def window_plan(n_frames: int, clip_size: int, *, pad_short: bool = False) -> li
 
 class SlidingWindowPredictor:
     def __init__(self, model: torch.nn.Module, *, clip_size: int = 32, batch: int = 16,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda", mesh=None):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda", mesh=None,
+                 graphs: bool = False):
         """model: a ViNet or AViNet with its weights loaded (or any module
         mapping (B, T, H, W, 3) clips [and (B, L, 1) audio] to (B, H, W)
         maps). The predictor prepares a
         copy of it (BatchNorms folded, cast to dtype, moved to device, eval
         mode) and leaves the caller's model as it is, as the JAX predictors
         leave (params, state). mesh: window batches are split over its data
-        axis (the module's docstring); batch must be divisible by it."""
+        axis (the module's docstring); batch must be divisible by it.
+        graphs: replay the forward as a CUDA graph on a card (the module's
+        docstring); ignored elsewhere."""
         self.device = resolve_device(device)
         self.model = prepared_copy(model, dtype, self.device)
         self.clip_size = clip_size
@@ -87,6 +129,22 @@ class SlidingWindowPredictor:
         self.mesh = mesh
         self.rows = batch_slice(mesh, batch)  # this rank's rows of a window batch
         self.videos = 0  # predict_video calls begun; the spans' request is the current one
+        self.graphs = {} if graphs and self.device.type == "cuda" else None  # by input shapes
+
+    def _forward(self, *inputs):
+        """self.model(*inputs), replayed from a CUDA graph where graphs are
+        on and no profiler records. The graph's output is overwritten by its
+        next replay, which the stream orders after every use of it here."""
+        if self.graphs is None or trace.recording():
+            return self.model(*inputs)
+        key = tuple((x.shape, x.dtype) for x in inputs)
+        if key not in self.graphs:
+            self.graphs[key] = _capture(self.model, inputs)
+        graph, static, out = self.graphs[key]
+        for s, x in zip(static, inputs):
+            s.copy_(x)
+        graph.replay()
+        return out
 
     @torch.inference_mode()
     def run_batch(self, frames: torch.Tensor, idx: torch.Tensor, out_hw: tuple,
@@ -98,11 +156,11 @@ class SlidingWindowPredictor:
         with trace.span("engine.run_batch", request=self.videos - 1, rows=idx.shape[0]):
             x = device_preprocess(frames[idx]).to(self.dtype)
             if audio is None:
-                maps = self.model(x).float()
+                maps = self._forward(x).float()
             else:
                 audio = audio.to(self.dtype)
                 audio = torch.where(flip[:, None, None], audio.flip(1), audio)
-                maps = self.model(x, audio).float()
+                maps = self._forward(x, audio).float()
             if tuple(out_hw) != tuple(maps.shape[1:]):
                 maps = resize_bilinear(maps, *out_hw)
             maps = gaussian_blur(maps, ksize=BLUR_KSIZE)
@@ -131,19 +189,37 @@ class SlidingWindowPredictor:
         with trace.span("engine.upload", request=video, bytes=frames_u8.nbytes):
             frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
 
-        pending = []  # (tasks, maps on the device)
+        pending = []  # (tasks, maps on the device) of the group being filled
+        fetching = []  # (group, host maps, copy done) of the groups sent, oldest first
 
-        def flush():
-            with trace.span("engine.fetch", request=video,
-                            bytes=sum(m.nbytes for _, m in pending)):
-                fetched = torch.cat([m for _, m in pending]).cpu().numpy()
+        def send():
+            """Start the pending group's copy to the host: on a card into
+            pinned memory without waiting, so the next group is queued
+            before the host waits for this one."""
+            maps = torch.cat([m for _, m in pending])
+            done = None
+            if self.device.type == "cuda":
+                host = torch.empty(maps.shape, dtype=maps.dtype, pin_memory=True)
+                host.copy_(maps, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host = maps.cpu()
+            fetching.append((list(pending), host, done))
+            pending.clear()
+
+        def deliver():
+            group, host, done = fetching.pop(0)
+            with trace.span("engine.fetch", request=video, bytes=host.nbytes):
+                if done is not None:
+                    done.synchronize()
+                fetched = host.numpy()
             k = 0
-            for tasks, m in pending:
+            for tasks, m in group:
                 for j, task in enumerate(tasks):
                     if task.out_frame - offset >= 0:
                         yield task.out_frame - offset, fetched[k + j]
                 k += m.shape[0]
-            pending.clear()
 
         for lo in range(0, len(plan), self.batch):
             chunk = plan[lo: lo + self.batch]
@@ -151,7 +227,7 @@ class SlidingWindowPredictor:
             for j, task in enumerate(chunk):
                 row = np.arange(task.start, task.start + t)
                 idx[j] = row[::-1] if task.flipped else row
-            idx_d = torch.from_numpy(idx).to(self.device)
+            idx_d = _upload(idx, self.device)
             audio = flip = None
             if audio_fn is not None:
                 exc = [audio_fn(max(0, task.start - offset)) for task in chunk]
@@ -166,6 +242,10 @@ class SlidingWindowPredictor:
                                   None if flip is None else flip[r])
             pending.append((chunk, gather_batch(maps, self.mesh)))
             if len(pending) >= FETCH_EVERY:
-                yield from flush()
+                send()
+                if len(fetching) > 1:
+                    yield from deliver()
         if pending:
-            yield from flush()
+            send()
+        while fetching:
+            yield from deliver()

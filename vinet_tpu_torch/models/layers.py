@@ -30,14 +30,17 @@ def _bn(ch: int) -> nn.BatchNorm3d:
 
 
 def fold_conv_bn(conv: nn.Module, bn: nn.Module) -> nn.Module:
-    """Fold bn into conv (3-D or 1-D) in place, at bn's own eps; return the
-    module that replaces bn."""
+    """Fold bn into conv (3-D or 1-D, or a transposed conv, whose weight is
+    (I, O, ...): the scale goes on its dim 1) in place, at bn's own eps;
+    return the module that replaces bn."""
     if isinstance(bn, nn.Identity):
         return bn
-    w, b = fold_bn_into_conv(conv.weight, conv.bias, bn.weight, bn.bias,
+    transposed = isinstance(conv, nn.modules.conv._ConvTransposeNd)
+    weight = conv.weight.transpose(0, 1) if transposed else conv.weight
+    w, b = fold_bn_into_conv(weight, conv.bias, bn.weight, bn.bias,
                              bn.running_mean, bn.running_var, eps=bn.eps)
     with torch.no_grad():
-        conv.weight.copy_(w)
+        conv.weight.copy_(w.transpose(0, 1) if transposed else w)
     conv.bias = nn.Parameter(b.to(conv.weight.dtype))
     return nn.Identity()
 

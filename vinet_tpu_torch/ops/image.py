@@ -20,10 +20,17 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=16)
+def _imagenet_stats(dtype: torch.dtype, device: torch.device) -> tuple:
+    """(mean, std) on device, made once: a fresh upload from host memory
+    would wait for the device's queue to drain at every call."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std over the channel (last) axis; x already in [0, 1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    mean, std = _imagenet_stats(x.dtype, x.device)
     return (x - mean) / std
 
 
@@ -45,9 +52,12 @@ def _gaussian_kernel_1d(ksize: int, sigma: float) -> tuple:
     return tuple((k / k.sum()).astype(np.float32).tolist())
 
 
-def _reflect101_index(n: int, pad: int, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=16)
+def _reflect101_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
     """Source index of each sample of a BORDER_REFLECT_101 padding of length
-    n by pad on each side; reflects repeatedly when pad >= n."""
+    n by pad on each side; reflects repeatedly when pad >= n. Made once per
+    (n, pad, device): a fresh upload would wait for the device's queue to
+    drain at every blur."""
     idx = np.pad(np.arange(n), pad, mode="reflect")
     return torch.from_numpy(idx).to(device)
 

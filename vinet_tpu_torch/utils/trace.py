@@ -19,7 +19,9 @@ nothing, makes no CUDA call and keeps no record. On, a span
 - where CUDA is initialised, records a ``torch.cuda.Event`` at entry and at
   exit on the current stream, without synchronising;
 - appends a record: the name, ``request`` (the feed, video or step the
-  span's work belongs to), the enclosing span's name (``parent``), the host
+  span's work belongs to; a span given none takes the enclosing span's, as
+  a model's span inside the engine's does), the enclosing span's name
+  (``parent``), the host
   times, ``attrs`` (counts at the boundary: ``bytes``, ``rows``, ...) and the
   events. The newest ``MAX_RECORDS`` are kept.
 
@@ -41,7 +43,7 @@ MAX_RECORDS = 100_000
 
 _OFF = contextlib.nullcontext()
 _records = collections.deque(maxlen=MAX_RECORDS)
-_stack = []  # names of the open spans, innermost last
+_stack = []  # the open spans, innermost last
 
 
 class _Span:
@@ -51,8 +53,10 @@ class _Span:
         self.name, self.request, self.attrs = name, request, attrs
 
     def __enter__(self):
-        self.parent = _stack[-1] if _stack else None
-        _stack.append(self.name)
+        self.parent = _stack[-1].name if _stack else None
+        if self.request is None and _stack:
+            self.request = _stack[-1].request
+        _stack.append(self)
         self._range = torch.profiler.record_function(self.name)
         self._range.__enter__()
         self.events = None
@@ -74,12 +78,17 @@ class _Span:
                          "events": self.events})
 
 
+def recording() -> bool:
+    """Whether a profiler records, so that spans are on."""
+    return _profiler._is_profiler_enabled
+
+
 def span(name: str, request=None, **attrs):
     """A context manager marking one span: the shared no-op unless a
     profiler records (the module's docstring). ``with span(...) as attrs``:
     the record's attrs, for a count known only inside the span; None when
     off."""
-    if not _profiler._is_profiler_enabled:
+    if not recording():
         return _OFF
     return _Span(name, request, attrs)
 
